@@ -1,0 +1,123 @@
+"""What every kernel wrapper checks before it dispatches, and the small
+facts its launcher passes to a CUDA entry.
+
+The rule the wrappers share: a tensor on the CPU takes the kernel's plain
+PyTorch version; a tensor on a CUDA device launches the hand-written
+kernel or raises. There is no fallback from one to the other, and no
+other device.
+"""
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+
+FLOAT_INPUTS = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# output tiles of the fp32 kernels (csrc/fp32_tiles.cuh)
+TILE = 128
+# a split reduction aims at this many blocks per SM (two resident at a
+# time, two waves), so the last wave's tail is a small share of the run
+BLOCKS_PER_SM = 4
+MIN_SLAB_ROWS = 256
+# no slab runs longer than this: one fp32 accumulator over n rows of a sum
+# that grows with n (a Gram diagonal, X^T X w) rounds with an error that
+# grows like n^1.5; at 1,048,576 rows that is ~15 on a diagonal of ~1e6,
+# past the 2e-5 tolerance. 65,536-row slabs cut it 64-fold.
+MAX_SLAB_ROWS = 65_536
+
+
+def require_matrix(kernel: str, name: str, t, dtypes=FLOAT_INPUTS) -> None:
+    """Raise unless ``t`` is a contiguous 2-D tensor of one of ``dtypes``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a torch.Tensor, got "
+                        f"{type(t).__name__}")
+    if t.dim() != 2:
+        raise ValueError(f"{kernel}: {name} must be 2-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} dtype {t.dtype} not in "
+                        f"{[str(d) for d in dtypes]}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous (row-major)")
+
+
+def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True for CPU tensors, False for CUDA tensors on one device; raises
+    for mixed devices and for any other device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{kernel}: operands on several devices "
+                         f"{sorted(str(d) for d in devices)}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"{kernel}: device {dev} is not supported (cpu or "
+                     "cuda)")
+
+
+def require_nonempty(kernel: str, **dims: int) -> None:
+    """The CUDA launchers take no empty dimension (an empty grid is not a
+    valid launch)."""
+    empty = [k for k, v in dims.items() if v < 1]
+    if empty:
+        raise ValueError(f"{kernel}: empty dimension(s) {empty} "
+                         f"({dims}) on CUDA")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    return _DTYPE_CODE[t.dtype]
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the C entries take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def split_slabs(tiles: int, rows: int, sms: int) -> int:
+    """How many row slabs a tiled reduction over ``rows`` is split into:
+    enough that no slab is longer than ``MAX_SLAB_ROWS``; and, when the
+    ``tiles`` output tiles cannot give every SM two blocks, enough for
+    ``BLOCKS_PER_SM`` blocks per SM, each slab keeping at least
+    ``MIN_SLAB_ROWS`` rows. Depends on shapes and the card only, so a
+    result repeats from run to run."""
+    accuracy = math.ceil(rows / MAX_SLAB_ROWS)
+    if tiles >= 2 * sms:
+        return max(1, accuracy)
+    want = math.ceil(BLOCKS_PER_SM * sms / max(1, tiles))
+    return max(1, accuracy, min(want, rows // MIN_SLAB_ROWS, 65535))
+
+
+def tiles(*dims: int) -> int:
+    """Number of TILE x TILE output tiles covering ``dims``."""
+    out = 1
+    for d in dims:
+        out *= math.ceil(d / TILE)
+    return out
+
+
+class LaunchCounter:
+    """A count of kernel launches, safe to bump from engine worker
+    threads. ``chip_smoke.py`` zeroes every counter before it drives the
+    main path and reads them after, to show the path went through the
+    kernels."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.value = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.value += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0
