@@ -14,14 +14,22 @@ paper's offload loop through the client entry point
 
 and streams the factors back. Rows are cut from the paper's 2,251,569
 (TIMIT) and 6,177,583 (ocean) to 1,048,576 each so one 80 GB card holds
-the work (Z = n x D fp32 is 41.9 GB). Each phase prints JSON lines; a
-failing check raises and the script exits non-zero. It needs one CUDA
-card and imports nothing of JAX or of the JAX package.
+the work (Z = n x D fp32 is 41.9 GB). Then it serves RecurrentGemma-9B
+at its published widths, all 38 layers, random fp32 parameters from a
+seed, through ``repro_torch.serve.ServingEngine``: 8 requests of
+3,584-4,096-token prompts, 32 new tokens each, in two waves of 4, every
+prefill running the swa and lru_scan kernels; and it holds the last
+logits of a full forward against prefill + one decode step.
+
+Each phase prints JSON lines; a failing check raises and the script exits
+non-zero. It needs one CUDA card and imports nothing of JAX or of the JAX
+package.
 
     python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -34,9 +42,11 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet) used for the bounds: fp32 outside the
-# tensor cores (the kernels use no TF32) and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense) used for the bounds: an
+# operation counts against the card's rate for its inputs' type, fp32
+# outside the tensor cores or bf16 on them; bytes against HBM3 bandwidth
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # widths of the paper's workloads (never cut) and the cut row counts
@@ -48,12 +58,36 @@ CG_ITERS = 20
 REF_BLOCK_ROWS = 65_536        # row blocks of the full-size references
 DEVICE = "cuda"
 
+# serving RecurrentGemma-9B (published widths, 38 layers)
+LM_ARCH = "recurrentgemma-9b"
+LM_REQUESTS, LM_MAX_BATCH, LM_NEW_TOKENS = 8, 4, 32
+LM_PROMPT_MIN, LM_PROMPT_MAX = 3_584, 4_096
+# the main path's kernel shapes: one wave of 4 prompts padded to 4,096
+LM_B, LM_S = LM_MAX_BATCH, LM_PROMPT_MAX
+# prefill + decode against a full forward: 3e-2 of max |logit|
+# (tests/test_models_smoke.py reads 3e-2, here relative to scale)
+LM_CONSISTENCY_TOL = 3e-2
+
 # tolerances of the JAX package's kernel tests (tests/test_kernels.py,
-# tests/test_extensions.py): rtol, and atol as a multiple of max|want|
-# (rf_map's atol is absolute)
+# tests/test_extensions.py, tests/test_lru_loss_kernels.py): rtol, and
+# atol as a multiple of max|want| (rf_map's, swa's and lru_scan's atol is
+# absolute)
 TOL = {"gram": {"float32": 2e-5, "bfloat16": 2e-2},
        "normal_matvec": {"float32": 3e-5, "bfloat16": 3e-2},
-       "rf_map": {"float32": 1e-5, "bfloat16": 2e-2}}
+       "rf_map": {"float32": 1e-5, "bfloat16": 2e-2},
+       "swa": {"float32": 2e-5, "bfloat16": 3e-2},
+       "lru_scan": {"float32": 1e-5, "bfloat16": 3e-2}}
+
+# swa at the main shape: with D = 256 and up to 2,048 visible keys an
+# output is a softmax average of v, typically sqrt(e / 2,048) ~ 0.04, so
+# the tests' absolute 3e-2 would be as large as what it compares. There
+# the bf16 kernel is held against the plain version on fp32 copies of its
+# inputs, per element within one bf16 ulp of |want| (twice its output's
+# rounding) plus SWA_ATOL_RMS times the output's RMS; and the same limit
+# must reject two planted faults, a window one key short and a softmax
+# scale 10 % high.
+SWA_RTOL = 2.0 ** -7
+SWA_ATOL_RMS = 1e-2
 
 KERNEL_META = {
     "gram": ("src/repro_torch/csrc/gram.cu",
@@ -62,6 +96,10 @@ KERNEL_META = {
                       "src/repro/kernels/normal_matvec/normal_matvec.py:40"),
     "rf_map": ("src/repro_torch/csrc/rf_map.cu",
                "src/repro/kernels/rf_map/rf_map.py:42"),
+    "swa": ("src/repro_torch/csrc/swa.cu",
+            "src/repro/kernels/swa/swa.py:69"),
+    "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
+                 "src/repro/kernels/lru_scan/lru_scan.py:44"),
 }
 
 
@@ -85,9 +123,10 @@ def cuda_time_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -187,8 +226,51 @@ def check_test_shapes() -> None:
             close("normal_matvec", normal_matvec(x, w),
                   normal_matvec_ref(x, w), dn)
             n_checked += 1
+        n_checked += check_lm_test_shapes(rng, dt, dn)
     torch.cuda.synchronize()
     emit({"phase": "kernel_test_shapes", "cases": n_checked})
+
+
+def check_lm_test_shapes(rng, dt, dn) -> int:
+    """swa and lru_scan at the JAX sweeps (tests/test_kernels.py,
+    tests/test_lru_loss_kernels.py), plus S not a multiple of 64, MQA,
+    window >= S, and head_dim 256 on (B, S, H, D) views."""
+    import torch
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    n = 0
+    for s, window, kh, d in [(128, 32, 2, 32), (256, 96, 2, 32),
+                             (256, 256, 2, 32), (512, 128, 2, 32),
+                             (200, 48, 2, 32), (192, 64, 1, 32),
+                             (128, 1000, 2, 32), (300, 100, 1, 256)]:
+        q = _randn(rng, (2, s, 4, d), dt).transpose(1, 2)
+        k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
+                for _ in range(2))
+        close("swa", swa_attention(q, k, v, window=window),
+              swa_ref(q, k, v, window), dn, absolute_atol=True)
+        n += 1
+    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512)]:
+        a = torch.sigmoid(_randn(rng, (b, s, w), torch.float32)).to(dt)
+        x = (0.1 * _randn(rng, (b, s, w), torch.float32)).to(dt)
+        h0 = _randn(rng, (b, w), torch.float32)
+        close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0), dn,
+              absolute_atol=True)
+        n += 1
+    return n
+
+
+def swa_excess(got, want) -> tuple[float, float]:
+    """(max |got - want|, max of |got - want| over the swa main-shape
+    limit) for a bf16 output ``got`` and its fp32 plain version."""
+    import torch
+    err = (got.float() - want).abs()
+    atol = SWA_ATOL_RMS * float(want.pow(2).mean().sqrt())
+    ratio = err / (atol + SWA_RTOL * want.abs())
+    if not bool(torch.isfinite(got).all()):
+        return math.inf, math.inf
+    return float(err.max()), float(ratio.max())
 
 
 def _randn_on_card(shape, seed):
@@ -279,9 +361,82 @@ def check_main_shapes() -> dict:
         "library_ms": None, "bound_ms": bound, "bound_by": by}
     del x, w, b
     torch.cuda.empty_cache()
+    out.update(check_lm_main_shapes())
     for name, rec in out.items():
         emit({"phase": "kernel_main_shape", "kernel": name, **rec})
     emit({"phase": "kernel_checks", "passed": sorted(out)})
+    return out
+
+
+def check_lm_main_shapes() -> dict:
+    """swa and lru_scan at the shapes a prefill wave of the served
+    RecurrentGemma-9B gives them: q (4, 16, 4,096, 256) and k, v
+    (4, 1, 4,096, 256) bf16 as (B, S, H, D) views, window 2,048 (held to
+    the SWA_RTOL / SWA_ATOL_RMS limit); a and b (4, 4,096, 4,096) fp32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    cfg = get_config(LM_ARCH)
+    out = {}
+
+    b, s, h, kh = LM_B, LM_S, cfg.num_heads, cfg.num_kv_heads
+    d, win = cfg.resolved_head_dim, cfg.sliding_window
+    q = _randn_on_card((b, s, h, d), 5).bfloat16().transpose(1, 2)
+    k = _randn_on_card((b, s, kh, d), 6).bfloat16().transpose(1, 2)
+    v = _randn_on_card((b, s, kh, d), 7).bfloat16().transpose(1, 2)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    want = swa_ref(qf, kf, vf, win)
+    err, ratio = swa_excess(swa_attention(q, k, v, window=win), want)
+    faults = {"window_minus_1": swa_excess(
+                  swa_ref(qf, kf, vf, win - 1).bfloat16(), want)[1],
+              "scale_x1.1": swa_excess(
+                  swa_ref(qf * 1.1, kf, vf, win).bfloat16(), want)[1]}
+    del qf, kf, vf, want
+    if not ratio <= 1.0:
+        raise AssertionError(f"swa bfloat16 {tuple(q.shape)}: max abs err "
+                             f"{err:.3e}, {ratio:.3f} x the limit")
+    if not all(r > 1.0 for r in faults.values()):
+        raise AssertionError(f"swa's limit passes a planted fault: {faults}")
+    pos = torch.arange(s, device=DEVICE)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - win)
+    kx, vx = (t.expand(b, h, s, d) for t in (k, v))
+    visible = sum(min(i + 1, win) for i in range(s))
+    nbytes = 2.0 * 2 * (b * h * s * d + b * kh * s * d)
+    flops = 4.0 * b * h * d * visible
+    bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    out["swa"] = {
+        "shape": [b, h, kh, s, d, win], "dtype": "bfloat16",
+        "max_abs_err": err, "err_over_limit": ratio,
+        "planted_faults_over_limit": faults,
+        "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
+        "kernel_ms": cuda_time_ms(lambda: swa_attention(q, k, v,
+                                                        window=win)),
+        "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, win)),
+        "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=band)),
+        "bound_ms": bound, "bound_by": by}
+    del q, k, v, kx, vx, band
+    torch.cuda.empty_cache()
+
+    w = cfg.lru_width
+    a = torch.sigmoid(_randn_on_card((b, s, w), 8))
+    x = 0.1 * _randn_on_card((b, s, w), 9)
+    h0 = _randn_on_card((b, w), 10)
+    err = close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0),
+                "float32", absolute_atol=True)
+    bound, by = bound_ms(4.0 * (3 * b * s * w + b * w), 2.0 * b * s * w)
+    out["lru_scan"] = {
+        "shape": [b, s, w], "dtype": "float32", "max_abs_err": err,
+        "kernel_ms": cuda_time_ms(lambda: lru_scan(a, x, h0)),
+        "plain_ms": cuda_time_ms(lambda: lru_scan_ref(a, x, h0)),
+        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del a, x, h0
+    torch.cuda.empty_cache()
     return out
 
 
@@ -518,6 +673,106 @@ def phase_svd(ac, counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serve RecurrentGemma-9B
+# ---------------------------------------------------------------------------
+def phase_serve(counters) -> tuple:
+    """Build RecurrentGemma-9B at its published widths on the card, serve
+    LM_REQUESTS requests through the port's ServingEngine, and check what
+    came out. Returns (model, the launch counts of the serving run)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.serve.engine import Request, ServingEngine
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = [layer.kind.value for layer in model.layers]
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_MIN, LM_PROMPT_MAX + 1, LM_REQUESTS)
+    engine = ServingEngine(model, max_batch=LM_MAX_BATCH)
+    for n in lens:
+        engine.submit(Request(
+            prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=LM_NEW_TOKENS))
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    done = engine.run()
+    serve_s = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+
+    want = {"swa": 2 * kinds.count("local_attn"),
+            "lru_scan": 2 * kinds.count("recurrent")}
+    if {k: launches[k] for k in want} != want or \
+            any(launches[k] for k in launches if k not in want):
+        raise AssertionError(f"serving launched {launches}, want {want}")
+    toks = [r.out_tokens for r in done]
+    if any(len(t) != LM_NEW_TOKENS for t in toks) or \
+            not all(0 <= x < cfg.vocab_size for t in toks for x in t):
+        raise AssertionError(f"served tokens out of shape or range: {toks}")
+    if engine.stats["prefills"] != 2 or \
+            engine.stats["decode_steps"] != 2 * (LM_NEW_TOKENS - 1):
+        raise AssertionError(f"serving stats {engine.stats}")
+    new_tokens = sum(len(t) for t in toks)
+    steps = engine.stats["decode_steps"]
+    emit({"phase": "serve", "arch": LM_ARCH, "layers": len(kinds),
+          "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "params": n_params, "param_bytes": 4 * n_params,
+          "init_s": init_s, "requests": len(done),
+          "prompt_lens": lens.tolist(), "new_tokens": new_tokens,
+          "waves": engine.waves,
+          "prefill_s_per_wave": [w["prefill_s"] for w in engine.waves],
+          "decode_ms_per_step": engine.stats["decode_s"] / steps * 1e3,
+          "serve_s": serve_s,
+          "new_tokens_per_s": new_tokens / serve_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "first_tokens": [t[:4] for t in toks],
+          "launches": launches})
+    return model, launches
+
+
+def phase_consistency(model) -> dict:
+    """One S = 4,096 request: the last-position logits of a full forward
+    (every layer through the kernels) against prefill(S - 1) and one
+    decode step (the last token through the plain ring-cache attention
+    and the single recurrence step)."""
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LM_S)))
+    toks = toks.to(DEVICE)
+    with torch.inference_mode():
+        x, _ = model(toks)
+        full = model.unembed(x[:, -1:])[:, 0].float()
+        del x
+        _, state = model.prefill(toks[:, :-1], seq_len=LM_S)
+        step, _ = model.decode_step(state, toks[:, -1:])
+        step = step.float()
+    del state
+    if not (bool(torch.isfinite(full).all()) and
+            bool(torch.isfinite(step).all())):
+        raise AssertionError("non-finite logits")
+    scale = float(full.abs().max())
+    err = float((full - step).abs().max())
+    same = int(full.argmax()) == int(step.argmax())
+    rec = {"phase": "consistency", "seq": LM_S, "layers": cfg.num_layers,
+           "max_abs_logit": scale, "max_abs_diff": err,
+           "limit": LM_CONSISTENCY_TOL * scale, "argmax_full":
+           int(full.argmax()), "argmax_decode": int(step.argmax())}
+    emit(rec)
+    if not (err <= LM_CONSISTENCY_TOL * scale and same):
+        raise AssertionError(f"prefill + decode disagrees with the full "
+                             f"forward: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -543,6 +798,17 @@ def main() -> int:
     ac2.stop()
     ac.engine.shutdown()
     for k, v in svd_launches.items():
+        launches[k] += v
+    del ac, ac2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, lm_launches = phase_serve(counters)
+    phase_consistency(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in lm_launches.items():
         launches[k] += v
 
     if any(m == "jax" or m.startswith(("jax.", "repro."))

@@ -150,6 +150,10 @@ class TransferRecord:
     nbytes: int
     direction: str                # "to_engine" | "to_client"
     modeled_socket_s: float
+    # Modeled seconds to reshard the crossing across chips. Kept so a
+    # record decodes the same on both packages; 0.0 on the port's one
+    # device, where nothing reshards.
+    modeled_reshard_s: float
     session: int = 0
     chunk_index: int = 0
     num_chunks: int = 1
@@ -199,6 +203,7 @@ class TransferLog:
             nbytes=int(nbytes),
             direction=direction,
             modeled_socket_s=socket_s,
+            modeled_reshard_s=0.0,
             session=session,
             chunk_index=chunk_index,
             num_chunks=num_chunks,
@@ -218,7 +223,7 @@ class TransferLog:
         frame — never the payload)."""
         rec = TransferRecord(
             nbytes=0, direction=direction, modeled_socket_s=0.0,
-            session=session, chunk_index=-1,
+            modeled_reshard_s=0.0, session=session, chunk_index=-1,
             num_chunks=num_chunks, dedup=True,
             logical_nbytes=int(logical_nbytes),
             wire_nbytes=int(wire_nbytes))

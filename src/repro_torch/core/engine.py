@@ -78,6 +78,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.analysis import locktrace, statemachine
+from repro_torch.common.device import explicit_device
 from repro_torch.core import backends as backend_registry
 from repro_torch.core import cache as caching, compilecache, configopts, \
     protocol, scheduler as scheduling
@@ -102,15 +103,7 @@ def engine_device(device="cuda") -> torch.device:
     """The engine's device. ``"cuda"`` (the default everywhere) raises
     when CUDA is absent; the engine never falls back to the CPU — only an
     explicit ``"cpu"`` runs there."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"AlchemistEngine(device={str(device)!r}): CUDA is not "
-            "available here; pass device='cpu' to run the engine on the "
-            "CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported engine device {dev}")
-    return dev
+    return explicit_device(device, "AlchemistEngine")
 
 
 class LibraryNotRegistered(KeyError):
@@ -1165,8 +1158,12 @@ class AlchemistEngine:
         this binding sees the new array. Either way the binding ends up
         on a fresh fingerprint and every cache entry touching this handle
         is invalidated — an overwritten result must never be served.
-        The new content is tagged ``replicated``, as :meth:`put` tags a
-        bare tensor."""
+
+        A tensor keeps the store's layout, as an array computed from an
+        engine array keeps its sharding in the JAX engine (``layout_of``);
+        a host array is ``replicated``, as ``layout_of`` reads a host
+        array."""
+        from_host = not isinstance(array, torch.Tensor)
         array = self._on_device(array)
         with self._state_lock:
             entry = self._visible_entry(handle, session)
@@ -1183,7 +1180,7 @@ class AlchemistEngine:
                     f"{tuple(array.shape)}/{dtype_name(array.dtype)}")
             store = self._stores[entry.store]
             fp = f"v:{next(self._clock)}"
-            lay = REPLICATED
+            lay = REPLICATED if from_host else store.layout
             if store.refs > 1:                          # copy-on-write
                 store.refs -= 1
                 store_id = next(self._store_ids)

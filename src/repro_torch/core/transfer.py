@@ -10,7 +10,7 @@ client memory is one partition plus one chunk, never the whole matrix),
 each chunk is copied through a pinned staging buffer straight into its
 rows of one device tensor allocated up front (the matrix is never held
 twice on the device), and each chunk logs its own
-:class:`~repro.core.costmodel.TransferRecord`, so the cost model — and
+:class:`~repro_torch.core.costmodel.TransferRecord`, so the cost model — and
 ``benchmarks/table3_transfer.py``'s chunk-size sweep — sees the same
 per-message structure the real sockets have.
 
@@ -143,6 +143,7 @@ def _aggregate_record(log, nbytes: int, direction: str, session: int,
         direction=direction,
         modeled_socket_s=stream_transfer_seconds_from_chunks(
             chunk_sizes, log.client_procs, log.engine_procs),
+        modeled_reshard_s=0.0,
         session=session,
         chunk_index=-1,
         num_chunks=len(chunk_sizes),

@@ -8,6 +8,9 @@ The port's ``send_matrix`` and ``engine.put`` apply the same rule through
 from the reference. ml_dtypes ``bfloat16`` arrays — what ``np.asarray``
 gives for a JAX bf16 array — cross through an int16 view, because
 ``torch.from_numpy`` refuses them.
+
+:func:`lm_params_from_reference` carries a JAX ``DecoderLM``'s parameters
+into the port's ``DecoderLM``.
 """
 from __future__ import annotations
 
@@ -63,3 +66,53 @@ def dtype_name(dtype: torch.dtype) -> str:
     """A torch dtype by its numpy/JAX name (``torch.float32`` ->
     ``"float32"``), as handles and wire frames spell it."""
     return str(dtype).removeprefix("torch.")
+
+
+def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
+    """The JAX package's ``DecoderLM`` parameter tree, as numpy (e.g.
+    ``jax.tree.map(np.asarray, params)``), as a state dict of the port's
+    ``DecoderLM`` on ``device`` (``model.load_state_dict(...)``).
+
+    The map is a rename plus an unstack:
+
+    ==================================  ===============================
+    JAX package path                    port parameter
+    ==================================  ===============================
+    ``embed/embedding``                 ``embed.embedding``
+    ``final_norm/scale``                ``final_norm.scale``
+    ``lm_head/embedding``               ``lm_head.embedding``
+    ``segments/{i}/b{j}/<path>`` [l]    ``layers.{n}.<path>``
+    ==================================  ===============================
+
+    where ``<path>`` keeps its names with ``/`` read as ``.`` (e.g.
+    ``temporal/q/w``, ``temporal/lam``, ``ffn/up/w``, ``norm1/scale``) and
+    layer ``n = o_i + l * c_i + j``: segment ``i`` stacks ``count_i``
+    cycles of ``c_i`` blocks (``b0`` .. ``b{c_i - 1}``) along a leading
+    axis indexed by ``l``, and ``o_i`` counts the layers of the segments
+    before it."""
+    out: dict[str, torch.Tensor] = {}
+
+    def leaves(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], tree
+
+    offset = 0
+    for seg in params["segments"]:
+        cycle = len(seg)
+        count = None
+        for j in range(cycle):
+            for path, arr in leaves(seg[f"b{j}"], ""):
+                arr = np.asarray(arr)
+                count = arr.shape[0]
+                for lyr in range(count):
+                    out[f"layers.{offset + lyr * cycle + j}.{path}"] = \
+                        host_to_tensor(arr[lyr], device)
+        offset += cycle * count
+    for k, v in params.items():
+        if k != "segments":
+            out.update((path, host_to_tensor(np.asarray(arr), device))
+                       for path, arr in leaves(v, f"{k}."))
+    return out

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("gram", "normal_matvec", "rf_map")
+KERNELS = ("gram", "normal_matvec", "rf_map", "swa", "lru_scan")
 
 # No --use_fast_math: it turns cosf into __cosf, which is wrong at the
 # |XW + b| of tens that random features reach.
@@ -42,6 +42,13 @@ SIGNATURES = {
                       [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT, _C]),
     "rf_map": ("rf_map_launch",
                [_INT, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float, _C]),
+    # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window, scale,
+    # stream)
+    "swa": ("swa_launch",
+            [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
+             ctypes.POINTER(_I64), _I64, ctypes.c_float, _C]),
+    "lru_scan": ("lru_scan_launch",
+                 [_INT, _C, _C, _C, _C, _I64, _I64, _I64, _C]),
 }
 
 _lock = threading.Lock()

@@ -31,16 +31,23 @@ MAX_SLAB_ROWS = 65_536
 
 def require_matrix(kernel: str, name: str, t, dtypes=FLOAT_INPUTS) -> None:
     """Raise unless ``t`` is a contiguous 2-D tensor of one of ``dtypes``."""
+    require_tensor(kernel, name, t, 2, dtypes)
+
+
+def require_tensor(kernel: str, name: str, t, ndim: int,
+                   dtypes=FLOAT_INPUTS, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is an ``ndim``-D tensor of one of ``dtypes``,
+    contiguous (row-major) when ``contiguous``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{kernel}: {name} must be a torch.Tensor, got "
                         f"{type(t).__name__}")
-    if t.dim() != 2:
-        raise ValueError(f"{kernel}: {name} must be 2-D, got shape "
+    if t.dim() != ndim:
+        raise ValueError(f"{kernel}: {name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{kernel}: {name} dtype {t.dtype} not in "
                         f"{[str(d) for d in dtypes]}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous (row-major)")
 
 
@@ -67,6 +74,15 @@ def require_nonempty(kernel: str, **dims: int) -> None:
     if empty:
         raise ValueError(f"{kernel}: empty dimension(s) {empty} "
                          f"({dims}) on CUDA")
+
+
+def require_grid(kernel: str, **dims: int) -> None:
+    """A launch puts these dimensions on a grid's y axis, which holds at
+    most 65,535 blocks."""
+    big = {k: v for k, v in dims.items() if v > 65_535}
+    if big:
+        raise ValueError(f"{kernel}: {big} exceed the 65,535 blocks of a "
+                         "grid's y axis on CUDA")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -1,0 +1,115 @@
+"""The decoder-only LM of the port: embedding, a stack of blocks, final
+norm, unembedding; a full forward, and prefill + decode over caches for
+serving.
+
+The JAX package stacks layers of one structure into segments and scans
+them; the port keeps one module per layer in ``layers`` (a ``ModuleList``
+in the order of ``cfg.block_kinds()``: RecurrentGemma-9B's 38 layers are
+12 (rec, rec, local) cycles and a (rec, rec) tail), so a layer's
+parameters are ``layers.{n}.<path>`` where the JAX package has
+``segments/{i}/b{j}/<path>[l]``. ``loss`` and the encoder-decoder model
+wait for the training slice (ROADMAP A11b, A11c).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import explicit_device
+from repro_torch.models.blocks import Block, check_buildable, \
+    init_block_cache
+from repro_torch.nn.core import normal
+from repro_torch.nn.linear import Embedding
+from repro_torch.nn.norms import norm
+
+
+@dataclasses.dataclass
+class DecodeState:
+    caches: list          # per layer: KVCache or RGLRUCache
+    index: int            # number of tokens already in the caches
+
+
+class DecoderLM(nn.Module):
+    """``generator`` draws the random parameters (default: a generator on
+    ``device`` seeded 0); ``device`` defaults to ``"cuda"`` and raises
+    without CUDA. Parameters are fp32; ops compute in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_buildable(cfg)
+        dev = explicit_device(device, "DecoderLM")
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.dtype)
+        v, d = cfg.vocab_size, cfg.d_model
+        self.embed = Embedding(normal((v, d), 1.0, generator, dev))
+        self.final_norm = norm(d, cfg.use_layernorm, cfg.norm_eps,
+                               device=dev)
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, generator=generator, device=dev)
+            for kind in cfg.block_kinds())
+        self.lm_head = None if cfg.tie_embeddings else \
+            Embedding(normal((v, d), 0.02, generator, dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.embedding.device
+
+    def forward(self, tokens: torch.Tensor, *,
+                caches: Optional[list] = None, index: Optional[int] = None):
+        """tokens: (B, S) ids. Without ``index`` the positions are
+        0..S-1 (a full forward, or a prefill that fills ``caches``); with
+        it every token sits at position ``index`` (decode, S == 1).
+        Returns (final-norm hidden states (B, S, d), new caches)."""
+        cd = self.compute_dtype
+        x = self.embed.embed(tokens, cd)
+        x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=cd)
+        b, s, _ = x.shape
+        if index is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        else:
+            positions = torch.full((b, s), index, device=x.device)
+        new_caches = []
+        for n, layer in enumerate(self.layers):
+            x, nc = layer(x, positions,
+                          cache=caches[n] if caches is not None else None,
+                          cache_index=index, compute_dtype=cd)
+            new_caches.append(nc)
+        return self.final_norm(x), new_caches
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        head = self.lm_head if self.lm_head is not None else self.embed
+        return head.unembed(x, self.compute_dtype)
+
+    def init_cache(self, batch: int, seq_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> list:
+        return [init_block_cache(self.cfg, layer.kind, batch, seq_len,
+                                 dtype, self.device)
+                for layer in self.layers]
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, seq_len: Optional[int] = None):
+        """Run the prompt through the model, filling caches sized for
+        ``seq_len`` tokens. Returns (last-token logits (B, V),
+        DecodeState)."""
+        b, s = tokens.shape
+        caches = self.init_cache(b, seq_len or s)
+        x, new_caches = self.forward(tokens, caches=caches)
+        logits = self.unembed(x[:, -1:])[:, 0]
+        return logits, DecodeState(caches=new_caches, index=s)
+
+    @torch.inference_mode()
+    def decode_step(self, state: DecodeState, tokens: torch.Tensor):
+        """tokens: (B, 1). Returns (logits (B, V), the next state). The
+        attention caches of ``state`` are updated in place."""
+        x, new_caches = self.forward(tokens, caches=state.caches,
+                                     index=state.index)
+        logits = self.unembed(x[:, -1:])[:, 0]
+        return logits, DecodeState(caches=new_caches, index=state.index + 1)
+

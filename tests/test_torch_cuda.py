@@ -52,4 +52,54 @@ def test_cuda_kernels_match_their_plain_versions(cuda, dtype, tols):
                                rf_map_ref(a, wr, br), rtol=tols["rf"],
                                atol=tols["rf"])
     assert {k: c.value for k, c in counters.items()} == \
-        {"gram": 1, "normal_matvec": 1, "rf_map": 1}
+        {"gram": 1, "normal_matvec": 1, "rf_map": 1, "swa": 0,
+         "lru_scan": 0}
+
+
+SWA_CASES = [  # (s, window, kv heads): the JAX sweep, then the port's own
+    (128, 32, 2), (256, 96, 2), (256, 256, 2), (512, 128, 2),
+    (200, 48, 2), (192, 64, 1), (128, 1000, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_swa_and_lru_scan_match_their_plain_versions(cuda, dtype, tol):
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    g = torch.Generator().manual_seed(1)
+    for s, window, kh in SWA_CASES:
+        q, k, v = (torch.randn(2, h, s, 32, generator=g).to(cuda, dtype)
+                   for h in (4, kh, kh))
+        torch.testing.assert_close(swa_attention(q, k, v, window=window),
+                                   swa_ref(q, k, v, window), rtol=tol,
+                                   atol=tol)
+    # the model's layout at RecurrentGemma's head_dim: (B, S, H, D) views
+    q = torch.randn(2, 300, 16, 256, generator=g).to(cuda, dtype)
+    k = torch.randn(2, 300, 1, 256, generator=g).to(cuda, dtype)
+    qh, kh_ = q.transpose(1, 2), k.transpose(1, 2)
+    got = swa_attention(qh, kh_, kh_, window=100)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, swa_ref(qh, kh_, kh_, 100), rtol=tol,
+                               atol=tol)
+    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512)]:
+        a = torch.sigmoid(torch.randn(b, s, w, generator=g)).to(cuda, dtype)
+        x = (0.1 * torch.randn(b, s, w, generator=g)).to(cuda, dtype)
+        h0 = torch.randn(b, w, generator=g).to(cuda)
+        torch.testing.assert_close(lru_scan(a, x, h0),
+                                   lru_scan_ref(a, x, h0), rtol=tol,
+                                   atol=tol)
+    got = lru_scan(torch.full((1, 4, 8), 0.5, device=cuda, dtype=dtype),
+                   torch.zeros((1, 4, 8), device=cuda, dtype=dtype),
+                   torch.full((1, 8), 16.0, device=cuda))
+    torch.testing.assert_close(got[0, :, 0].cpu(),
+                               torch.tensor([8.0, 4.0, 2.0, 1.0]))
+    torch.cuda.synchronize()
+    assert {k: c.value for k, c in counters.items()} == \
+        {"gram": 0, "normal_matvec": 0, "rf_map": 0,
+         "swa": len(SWA_CASES) + 1, "lru_scan": 4}

@@ -190,7 +190,9 @@ def test_spilled_store_reloads_on_the_engine_device():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, repro_torch, repro_torch.core\n"
+    code = ("import sys, repro_torch, repro_torch.core, "
+            "repro_torch.models.model, repro_torch.serve.engine, "
+            "repro_torch.launch.serve, repro_torch.interop\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -229,3 +231,39 @@ def test_mllib_baseline_runs_through_the_port(pair):
     want = np.linalg.solve(x.T @ x + 60 * 1e-3 * np.eye(8), x.T @ y)
     np.testing.assert_allclose(port.wrap(res["W"]).to_numpy(), want,
                                atol=1e-4)
+
+
+def test_overwrite_keeps_the_layout_the_reference_derives(pair):
+    """A tensor computed from an engine array keeps the store's layout
+    (the reference's ``layout_of`` reads the sharding such an array
+    keeps); a host array is ``replicated``."""
+    port, ref = pair
+    seen = []
+    for ac in (port, ref):
+        eng = ac.engine
+        a = ac.send_matrix(np.ones((4, 4), np.float32)).handle
+        eng.overwrite(a, eng.get(a) * 2)
+        derived = eng.layout(a)
+        eng.overwrite(a, np.full((4, 4), 3.0, np.float32))
+        seen.append((derived, eng.layout(a)))
+        np.testing.assert_array_equal(np.asarray(eng.get(a)), 3.0)
+    assert seen[0] == seen[1] == ("rowblock", "replicated")
+
+
+def test_transfer_records_cross_between_the_packages():
+    """A reference record (as its server frames it) decodes as a port
+    record, field for field, and the reverse."""
+    import dataclasses
+    from repro.core.costmodel import TransferLog as RefLog, \
+        TransferRecord as RefRecord
+    from repro_torch.core.costmodel import TransferLog, TransferRecord
+    ref_rec = RefLog().record(4096, "to_engine", session=3, chunk_index=1,
+                              num_chunks=4, pipelined=True)
+    got = TransferRecord(**dataclasses.asdict(ref_rec))
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref_rec)
+    assert [f.name for f in dataclasses.fields(TransferRecord)] == \
+        [f.name for f in dataclasses.fields(RefRecord)]
+    port_rec = TransferLog().record_dedup(512, "to_engine", session=2)
+    back = RefRecord(**dataclasses.asdict(port_rec))
+    assert back.modeled_reshard_s == 0.0 and back.dedup
+    assert dataclasses.asdict(back) == dataclasses.asdict(port_rec)

@@ -109,7 +109,8 @@ def test_cpu_wrappers_launch_nothing():
     normal_matvec(x, torch.randn(8, 2))
     rf_map(x, 16)
     assert {k: c.value for k, c in counters.items()} == \
-        {"gram": 0, "normal_matvec": 0, "rf_map": 0}
+        {"gram": 0, "normal_matvec": 0, "rf_map": 0, "swa": 0,
+         "lru_scan": 0}
 
 
 @pytest.mark.parametrize("bad,err", [
