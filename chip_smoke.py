@@ -43,9 +43,11 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense) used for the bounds: an
-# operation counts against the card's rate for its inputs' type, fp32
-# outside the tensor cores or bf16 on them; bytes against HBM3 bandwidth
+# operation counts against the card's rate for the route the kernel takes,
+# fp32 outside the tensor cores, TF32 or bf16 on them; bytes against HBM3
+# bandwidth
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -100,6 +102,14 @@ KERNEL_META = {
             "src/repro/kernels/swa/swa.py:69"),
     "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
                  "src/repro/kernels/lru_scan/lru_scan.py:44"),
+}
+# what each kernel computes on
+KERNEL_DESIGN = {
+    "gram": "fp32 CUDA cores, 128x128 register tiles",
+    "normal_matvec": "3xTF32 wgmma",
+    "rf_map": "fp32 CUDA cores, 128x128 register tiles",
+    "swa": "mma.sync bf16",
+    "lru_scan": "fp32 CUDA cores, one thread per channel",
 }
 
 
@@ -219,8 +229,11 @@ def check_test_shapes() -> None:
             close("rf_map", rf_map_apply(x, w, b), rf_map_ref(x, w, b), dn,
                   absolute_atol=True)
             n_checked += 1
+        # the JAX tests' shapes, then the tensor-core kernel's column tiles
+        # (c = 147, 160; 161 takes two) at row counts off its 128-row tile
         for n, d, c in [(256, 64, 4), (300, 128, 1), (512, 440, 16),
-                        (1000, 37, 3), (130, 32, 2)]:
+                        (1000, 37, 3), (130, 32, 2), (1000, 200, 147),
+                        (777, 256, 160), (300, 70, 161)]:
             x = _randn(rng, (n, d), dt)
             w = _randn(rng, (d, c), torch.float32)
             close("normal_matvec", normal_matvec(x, w),
@@ -234,7 +247,9 @@ def check_test_shapes() -> None:
 def check_lm_test_shapes(rng, dt, dn) -> int:
     """swa and lru_scan at the JAX sweeps (tests/test_kernels.py,
     tests/test_lru_loss_kernels.py), plus S not a multiple of 64, MQA,
-    window >= S, and head_dim 256 on (B, S, H, D) views."""
+    window >= S, and S = 300 on (B, S, H, D) views at every head dim: fp32
+    through the CUDA-core route, bf16 through the tensor-core route, which
+    is also held to the main shape's limit (swa_excess)."""
     import torch
     from repro_torch.kernels.lru_scan.ops import lru_scan
     from repro_torch.kernels.lru_scan.ref import lru_scan_ref
@@ -244,12 +259,20 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
     for s, window, kh, d in [(128, 32, 2, 32), (256, 96, 2, 32),
                              (256, 256, 2, 32), (512, 128, 2, 32),
                              (200, 48, 2, 32), (192, 64, 1, 32),
-                             (128, 1000, 2, 32), (300, 100, 1, 256)]:
+                             (128, 1000, 2, 32), (300, 100, 1, 32),
+                             (300, 100, 1, 64), (300, 100, 1, 128),
+                             (300, 100, 1, 256)]:
         q = _randn(rng, (2, s, 4, d), dt).transpose(1, 2)
         k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
                 for _ in range(2))
-        close("swa", swa_attention(q, k, v, window=window),
-              swa_ref(q, k, v, window), dn, absolute_atol=True)
+        got = swa_attention(q, k, v, window=window)
+        close("swa", got, swa_ref(q, k, v, window), dn, absolute_atol=True)
+        if dt == torch.bfloat16:
+            ratio = swa_excess(got, swa_ref(q.float(), k.float(), v.float(),
+                                            window))[1]
+            if not ratio <= 1.0:
+                raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
+                                     f"{window}: {ratio:.3f} x the limit")
         n += 1
     for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512)]:
         a = torch.sigmoid(_randn(rng, (b, s, w), torch.float32)).to(dt)
@@ -327,9 +350,12 @@ def check_main_shapes() -> dict:
     w = _randn_on_card((d, c), 3)
     err = close("normal_matvec", normal_matvec(x, w),
                 blocked(normal_matvec_ref, x, w), "float32")
-    bound, by = bound_ms(4.0 * (n * d + 2 * d * c), 4.0 * n * d * c)
+    # 3xTF32: three TF32 products for each product on the tensor cores
+    nbytes, flops = 4.0 * (n * d + 2 * d * c), 4.0 * n * d * c
+    bound, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
     out["normal_matvec"] = {
         "shape": [n, d, c], "max_abs_err": err,
+        "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
         "kernel_ms": cuda_time_ms(lambda: normal_matvec(x, w)),
         "plain_ms": cuda_time_ms(lambda: normal_matvec_ref(x, w)),
         "library_ms": cuda_time_ms(
@@ -824,7 +850,10 @@ def main() -> int:
          "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"]}
+         "library_ms": kernels[name]["library_ms"],
+         "design": KERNEL_DESIGN[name],
+         **{k: kernels[name][k] for k in ("bound_ms_fp32_cuda_cores",)
+            if k in kernels[name]}}
         for name in sorted(kernels)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

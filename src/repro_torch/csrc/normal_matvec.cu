@@ -1,66 +1,453 @@
 // w -> X^T (X w), fp32 accumulation. X (n, d) fp32 or bf16 row-major,
-// w (d, c) fp32, result (d, c) fp32. Any d: there is no cap and no other
-// path on the card.
+// w (d, c) fp32, result (d, c) fp32. Any n, d and c: there is no cap and
+// no other path on the card.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/normal_matvec/normal_matvec.py::normal_matvec_pallas
 // (_nm_kernel): the CG iteration of skylark.cg_solve.
 //
 // Bound on the H100: operations. Each call does 4 n d c flops against the
-// n d elements of X; at c = 147 that is 147 flops per fp32 byte, seven
-// times the card's fp32 balance point (67 TFLOP/s over 3.35 TB/s), so the
-// CUDA-core fp32 rate bounds it, not HBM.
+// n d elements of X; at c = 147 that is 147 flops per fp32 byte. In fp32
+// on the CUDA cores that is 92 ms at the main path's 1,048,576 x 10,000 x
+// 147 (67 TFLOP/s); on the tensor cores in 3xTF32 (three TF32 products
+// per product, see below) 37 ms (495 TFLOP/s / 3). Reading X twice,
+// 84 GB, takes 25 ms: still below the operations.
 //
-// Design: the TPU kernel held one (bm, d) row band in VMEM and did both
-// products on it, accumulating the (d, c) result across a grid that ran
-// in order. A block here cannot hold a (d, c) accumulator at d = 10,000
-// (5.9 MB), so the two products are two launches, and X is read twice:
-//   1. t = X w        (n, c): 128 x 128 tiles, the d-reduction inside the
-//                      block (gemm_nn_kernel);
-//   2. out = X^T t    (d, c): 128 x 128 tiles, the n-reduction split into
-//                      `slabs` fixed row slabs (d = 10,000 and c = 147
-//                      give only 158 tiles; no slab exceeds 65,536 rows,
-//                      which bounds fp32 rounding), each slab writing a
-//                      partial that a third kernel sums in slab order.
-//                      No atomics.
+// The kernel this replaces used 128 x 128 fp32 CUDA-core tiles for both
+// products: at c = 147 it computed 256 columns to keep 147 (43 % of its
+// FMAs on padding) and ran at 33 % of the fp32 bound, slower than cuBLAS's
+// two fp32 products. This one:
+//   * runs on the tensor cores with the 3xTF32 split: x = hi + lo with hi
+//     the TF32 truncation of x and lo that of x - hi, and a b ~ a_hi b_hi +
+//     a_hi b_lo + a_lo b_hi, which keeps fp32-level error (the tolerance
+//     is 3e-5; one-pass TF32 misses it). A bf16 X is exact in TF32 and
+//     takes two products, x b_hi + x b_lo;
+//   * issues Hopper's warpgroup products (wgmma.mma_async m64nNk8, A from
+//     registers, B from shared memory) and not mma.sync, whose TF32 rate
+//     on the H100 is well below wgmma's: a version on mma.sync, where
+//     every fragment is a shared load and three split instructions per
+//     warp, ran no faster than cuBLAS;
+//   * covers c with N = 8 ceil(c / 8) columns (152 at c = 147, 3 %
+//     padding) in one instruction per product, one instantiation per N;
+//     above 160 columns (the registers of a block), c splits into as few
+//     near-equal column tiles as fit;
+//   * makes the next stage ready while one stage's products run: its B
+//     tile, landed raw by cp.async, is split in shared memory (hi in
+//     place, lo beside it) and its A fragments are loaded and split into
+//     the second of two register buffers. Splitting B once per block in
+//     shared memory beat loading w^T and t^T pre-split from device memory
+//     (twice B's bytes: slower on the card);
+//   * adds the tensor cores' sums of each 32-deep stage into fp32
+//     registers of its own; each stage's first product overwrites the
+//     tensor-core sums instead of adding to them. Those sums truncate
+//     instead of rounding, and the bias grows with the chain: with no such
+//     step a 65,536-row slab (whose X^T X diagonal term grows with the
+//     rows) missed the 3e-5 tolerance several times over on the card, and
+//     with one every 8 stages the operator's error was 6x cuBLAS's and
+//     CG's 20-iteration residual in chip_smoke.py 3x the CUDA-core
+//     kernel's. Every stage costs no time: the next stage's split and
+//     loads cover the wait;
+//   * loads through a four-stage cp.async ring (three where four do not
+//     fit, N = 160) of 16-byte copies (4-byte copies or plain loads where
+//     X's rows are not 16-byte aligned). w^T and t^T are laid out in
+//     32-deep tiles, so a stage's B is 8 N x 128 contiguous bytes and not
+//     N rows from N pages, which had made the X^T t launch 1.5x slower.
+// B is K-major in shared memory, as TF32 wgmma requires: w and t are kept
+// transposed, w^T written by transpose_tiles_kernel and t^T by the first
+// launch. No swizzle: 8 x 16-byte core matrices, the 8 of one 8-row group
+// along K side by side. Block: two warpgroups over a 128-row x N-column
+// output tile, each 64 rows; one block per SM (224 KB of shared memory
+// at N = 152).
+//
+// The two products are two launches, as the TPU kernel's VMEM-resident
+// (d, c) accumulator has no counterpart in a block (5.9 MB at d = 10,000):
+//   1. t^T = (X w)^T  (ldt, n): 128-row tiles of X, the d-reduction inside
+//                      the block; t's columns past c come out as zeros;
+//   2. out = X^T t    (d, c): 128-row tiles of d, the n-reduction split
+//                      into `slabs` fixed row slabs of at most 65,536 rows
+//                      (kernels/device.py), each slab writing a partial
+//                      that sum_slabs_kernel adds in slab order. No
+//                      atomics: results repeat bit for bit.
 #include "fp32_tiles.cuh"
+#include "tc_mma.cuh"
+#include "wgmma_tf32.cuh"
 
-using namespace fp32_tiles;
+namespace {
 
-template <typename T>
-static void launch(const void* x, const float* w, float* t, float* part,
-                   float* out, int64_t n, int64_t d, int64_t c, int slabs,
-                   cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  dim3 grid_t((unsigned)ceil_div(n, BM), (unsigned)ceil_div(c, BN), 1);
-  gemm_nn_kernel<T, float, false><<<grid_t, THREADS, 0, stream>>>(
-      xp, w, nullptr, t, n, d, c, 1.f);
-  const int64_t slab_rows = ceil_div(ceil_div(n, slabs), BK) * BK;
-  dim3 grid_o((unsigned)ceil_div(c, BN), (unsigned)ceil_div(d, BM),
-              (unsigned)slabs);
-  float* dst = slabs == 1 ? out : part;
-  gemm_tn_kernel<T, float, false><<<grid_o, THREADS, 0, stream>>>(
-      xp, t, dst, n, d, c, slab_rows);
-  if (slabs > 1)
-    sum_slabs_kernel<<<sum_slabs_blocks(d * c), 256, 0, stream>>>(
-        part, out, d * c, slabs);
+constexpr int BM = 128;          // output rows of a block
+constexpr int BK = 32;           // reduction depth of one stage
+constexpr int KG = BK / 4;       // 16-byte core-matrix columns of a stage
+constexpr int NT_MAX = 20;       // 8-column tiles of a block (160)
+constexpr int THREADS = 256;     // two warpgroups
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-// dtype of x: 0 = float32, 1 = bfloat16. t holds n * c floats, part
-// slabs * d * c floats when slabs > 1 (unused otherwise).
-// Returns cudaGetLastError().
+// rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major matrix
+// with leading dimension ld into a shared tile with row stride SLD;
+// elements at or past (r_end, c_end) read as zero.
+template <typename T, int ROWS, int COLS, int SLD>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ g,
+                                          int64_t ld, int64_t r0,
+                                          int64_t r_end, int64_t c0,
+                                          int64_t c_end, bool vec,
+                                          int tid) {
+  constexpr int E = 16 / sizeof(T);   // elements of a 16-byte chunk
+  if (vec) {
+    constexpr int CPR = COLS / E;
+#pragma unroll
+    for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+      const int e = tid + THREADS * i;
+      const int r = e / CPR;
+      const int cc = (e % CPR) * E;
+      const int64_t gr = r0 + r;
+      const int64_t gc = c0 + cc;
+      int64_t n = gr < r_end ? c_end - gc : 0;
+      n = n < 0 ? 0 : (n > E ? E : n);
+      tc::cp_async16(tc::smem_u32(dst + r * SLD + cc),
+                     n ? g + gr * ld + gc : g, (int)n * (int)sizeof(T));
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int i = 0; i < ROWS * COLS / THREADS; ++i) {
+    const int e = tid + THREADS * i;
+    const int r = e / COLS;
+    const int c = e % COLS;
+    const int64_t gr = r0 + r;
+    const int64_t gc = c0 + c;
+    const bool ok = gr < r_end && gc < c_end;
+    if constexpr (sizeof(T) == 4) {
+      tc::cp_async4(tc::smem_u32(dst + r * SLD + c),
+                    ok ? g + gr * ld + gc : g, ok ? 4 : 0);
+    } else {
+      dst[r * SLD + c] = ok ? g[gr * ld + gc] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// shared-memory descriptor of a K-major, unswizzled operand whose 8 x
+// 16-byte core matrices lie 128 bytes apart along K and KG * 128 bytes
+// apart along N (PTX ISA "Matrix Descriptor Format")
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  constexpr uint64_t LBO = 128 >> 4;
+  constexpr uint64_t SBO = (KG * 128) >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (LBO << 16) | (SBO << 32);
+}
+
+// Shared memory of one block. A as cp.async lands it: X[m][k] as
+// [BM][BK + pad] (kXT false) or X[k][m] as [BK][BM + 8] (kXT true); the
+// pads put the fragment loads of a warp in 32 distinct banks. B^T: 8 NT
+// rows (n) x BK (k) fp32 as core matrices, hi and lo parts. Four stages
+// where they fit in the 227 KB a block may have (N <= 152 in fp32), else
+// three.
+template <typename T, bool kXT, int NT>
+struct Layout {
+  static constexpr int A_ROWS = kXT ? BK : BM;
+  static constexpr int A_COLS = kXT ? BM : BK;
+  static constexpr int A_LD = A_COLS + (kXT ? 8 : 16 / (int)sizeof(T));
+  static constexpr int A_BYTES = A_ROWS * A_LD * (int)sizeof(T);
+  static constexpr int B_BYTES = 8 * NT * BK * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static constexpr int STAGES = 4 * STAGE_BYTES <= 232448 ? 4 : 3;
+  static constexpr size_t BYTES = (size_t)STAGES * STAGE_BYTES;
+};
+
+template <int B>
+struct Buf {
+  static constexpr int value = B;
+};
+
+// C (M x N) [+ z M ldo] = A B over k in this slab, k_begin a multiple of
+// BK. A(m, k) = X[m][k] (kXT false) or X[k][m] (kXT true). B^T is fp32 in
+// BK-deep tiles: element (col, k) at bt[(k / BK) ldt BK + col BK + k % BK],
+// zero at columns past the valid ones. kXT false writes C^T in the same
+// tiled form (ldt columns); kXT true writes out[m * ldo + col] for
+// columns below n_out.
+template <typename T, bool kXT, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+    nm_wgmma_kernel(const T* __restrict__ x, const float* __restrict__ bt,
+                    float* __restrict__ out, int64_t M, int64_t K,
+                    int64_t ldx, int64_t ldt, int64_t ldo, int64_t n_out,
+                    int64_t slab_rows, bool vec_a) {
+  using L = Layout<T, kXT, NT>;
+  constexpr int STAGES = L::STAGES;
+  constexpr bool kSplitA = sizeof(T) == 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;             // warpgroup: rows 64 wg .. + 63
+  const int wq = (tid >> 5) & 3;       // warp in the warpgroup: 16 rows
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const int64_t c0 = (int64_t)blockIdx.y * 8 * NT;
+  const int64_t k_begin = (int64_t)blockIdx.z * slab_rows;
+  const int64_t k_end = k_begin + slab_rows < K ? k_begin + slab_rows : K;
+  const int steps = (int)((k_end - k_begin + BK - 1) / BK);
+
+  auto a_tile = [&](int s) {
+    return reinterpret_cast<T*>(smem + s * L::STAGE_BYTES);
+  };
+  auto b_hi = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * L::STAGE_BYTES + L::A_BYTES);
+  };
+  auto b_lo = [&](int s) { return b_hi(s) + 8 * NT * BK; };
+
+  auto load_stage = [&](int s, int64_t k0) {
+    if (kXT)
+      load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(a_tile(s), x, ldx, k0,
+                                                  k_end, m0, M, vec_a, tid);
+    else
+      load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(a_tile(s), x, ldx, m0, M,
+                                                  k0, k_end, vec_a, tid);
+    // B^T tile of [k0, k0 + BK): row c0 + n is 128 contiguous bytes, its
+    // 16-byte chunk kc goes to core matrix (n / 8, kc), row n % 8. Eight
+    // consecutive threads take the chunk kc of eight consecutive rows:
+    // one 128-byte line of shared memory, no bank conflict.
+    const float* src = bt + (k0 / BK) * ldt * BK + c0 * BK;
+    float* dst = b_hi(s);
+    for (int e = tid; e < 8 * NT * KG; e += THREADS) {
+      const int n = (e >> 6) * 8 + (e & 7);
+      const int kc = ((e >> 5) & 1) * 4 + ((e >> 3) & 3);
+      const int64_t gk = k0 + 4 * kc;
+      int64_t bytes = (k_end - gk) * 4;
+      bytes = bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes);
+      tc::cp_async16(
+          tc::smem_u32(dst + ((n >> 3) * KG + kc) * 32 + (n & 7) * 4),
+          bytes ? src + n * BK + 4 * kc : bt, (int)bytes);
+    }
+  };
+
+  // B of stage s, landed: hi in place, lo beside it
+  auto split_b = [&](int s) {
+    float4* hi = reinterpret_cast<float4*>(b_hi(s));
+    float4* lo = reinterpret_cast<float4*>(b_lo(s));
+    for (int e = tid; e < 8 * NT * KG; e += THREADS) {
+      const float4 v = hi[e];
+      uint32_t h[4], l[4];
+      tc::split_tf32(v.x, h[0], l[0]);
+      tc::split_tf32(v.y, h[1], l[1]);
+      tc::split_tf32(v.z, h[2], l[2]);
+      tc::split_tf32(v.w, h[3], l[3]);
+      hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                          __uint_as_float(h[2]), __uint_as_float(h[3]));
+      lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                          __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+    // generic-proxy writes, read next by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  // A fragments of a stage's four 8-deep steps, split in registers, in
+  // two buffers: the products of one stage read theirs while the next
+  // stage's are loaded
+  const int row = wg * 64 + wq * 16 + g;   // this thread's first A row
+  uint32_t ah[2][BK / 8][4], al[2][BK / 8][4];
+  auto load_a = [&](int s, auto buf) {
+    constexpr int B = decltype(buf)::value;
+    const T* a = a_tile(s);
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + (e & 1) * 8;
+        const int kk = ks * 8 + t + (e >> 1) * 4;
+        const float v =
+            as_f32(kXT ? a[kk * L::A_LD + r] : a[r * L::A_LD + kk]);
+        if constexpr (kSplitA)
+          tc::split_tf32(v, ah[B][ks][e], al[B][ks][e]);
+        else
+          ah[B][ks][e] = __float_as_uint(v);   // bf16 is exact in TF32
+      }
+  };
+
+  float acc[4 * NT];
+  float part[4 * NT];
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) acc[i] = part[i] = 0.f;
+
+  // the products of stage `it` (A buffer `buf`) into `part`, started from
+  // zero; while they run, the next stage's loads, split and A fragments;
+  // then `part` joins `acc`
+  auto step = [&](int it, auto buf) {
+    constexpr int B = decltype(buf)::value;
+    const int s = it % STAGES;
+    const uint32_t hi_addr = tc::smem_u32(b_hi(s));
+    const uint32_t lo_addr = tc::smem_u32(b_lo(s));
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      // an 8-deep step reads two core-matrix columns; small terms first
+      const uint64_t dh = kmajor_desc(hi_addr + ks * 256);
+      const uint64_t dl = kmajor_desc(lo_addr + ks * 256);
+      if constexpr (kSplitA)
+        tc::wgmma_tf32<NT>(part, al[B][ks], dh, ks > 0);
+      tc::wgmma_tf32<NT>(part, ah[B][ks], dl, kSplitA || ks > 0);
+      tc::wgmma_tf32<NT>(part, ah[B][ks], dh, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // both warpgroups waited for their products of stage it - 1 at the end
+    // of the last step: its shared memory and A buffer are free
+    __syncthreads();
+    const int nxt = it + STAGES - 1;
+    if (nxt < steps)
+      load_stage(nxt % STAGES, k_begin + (int64_t)nxt * BK);
+    tc::cp_async_commit();
+    if (it + 1 < steps) {
+      tc::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      split_b((it + 1) % STAGES);
+      load_a((it + 1) % STAGES, Buf<1 - B>{});
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] += part[i];
+    __syncthreads();   // the split of it + 1 is visible to every warp
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_stage(s, k_begin + (int64_t)s * BK);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  if (steps > 0) {
+    split_b(0);
+    load_a(0, Buf<0>{});
+  }
+  __syncthreads();
+  for (int it = 0; it < steps; it += 2) {
+    step(it, Buf<0>{});
+    if (it + 1 < steps) step(it + 1, Buf<1>{});
+  }
+  tc::cp_async_wait<0>();
+
+  if (kXT) {
+    float* o = out + (int64_t)blockIdx.z * M * ldo;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t r = m0 + row + (e >> 1) * 8;
+        const int64_t c = c0 + 8 * j + 2 * t + (e & 1);
+        if (r < M && c < n_out) o[r * ldo + c] = acc[4 * j + e];
+      }
+  } else {
+    // C^T in BK-deep tiles, the B of the X^T t launch
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t r = m0 + row + (e >> 1) * 8;
+        const int64_t c = c0 + 8 * j + 2 * t + (e & 1);
+        if (r < M)
+          out[(r / BK) * ldt * BK + c * BK + r % BK] = acc[4 * j + e];
+      }
+  }
+}
+
+// wt = w^T in BK-deep tiles (element (col, k) at (k / BK) ldt BK + col BK +
+// k % BK), zero at columns past c and rows past d: the B of the t = X w
+// launch
+__global__ void transpose_tiles_kernel(const float* __restrict__ w,
+                                       float* __restrict__ wt, int64_t d,
+                                       int64_t c, int64_t ldt,
+                                       int64_t size) {
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < size; e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t k = e / (ldt * BK) * BK + e % BK;
+    const int64_t col = e / BK % ldt;
+    wt[e] = col < c && k < d ? w[k * c + col] : 0.f;
+  }
+}
+
+bool aligned16(const void* p, int64_t ld_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld_bytes % 16 == 0;
+}
+
+template <typename T, bool kXT, int NT>
+cudaError_t launch_pass(dim3 grid, const T* x, const float* bt, float* out,
+                        int64_t M, int64_t K, int64_t ldx, int64_t ldt,
+                        int64_t ldo, int64_t n_out, int64_t slab_rows,
+                        cudaStream_t stream) {
+  constexpr size_t bytes = Layout<T, kXT, NT>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      nm_wgmma_kernel<T, kXT, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  nm_wgmma_kernel<T, kXT, NT><<<grid, THREADS, bytes, stream>>>(
+      x, bt, out, M, K, ldx, ldt, ldo, n_out, slab_rows,
+      aligned16(x, ldx * (int64_t)sizeof(T)));
+  return cudaGetLastError();
+}
+
+template <typename T, int NT>
+int launch(const T* x, const float* w, float* wt, float* tt, float* part,
+           float* out, int64_t n, int64_t d, int64_t c, int slabs,
+           cudaStream_t stream) {
+  using fp32_tiles::ceil_div;
+  const int64_t col_tiles = ceil_div(c, 8 * (int64_t)NT);
+  const int64_t ldt = col_tiles * 8 * NT;
+  const int64_t wt_size = ceil_div(d, BK) * BK * ldt;
+  transpose_tiles_kernel<<<fp32_tiles::sum_slabs_blocks(wt_size), 256, 0,
+                           stream>>>(w, wt, d, c, ldt, wt_size);
+  cudaError_t err = launch_pass<T, false, NT>(
+      dim3((unsigned)ceil_div(n, BM), (unsigned)col_tiles, 1), x, wt, tt, n,
+      d, d, ldt, 0, ldt, d, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t slab_rows = ceil_div(ceil_div(n, slabs), BK) * BK;
+  float* dst = slabs == 1 ? out : part;
+  err = launch_pass<T, true, NT>(
+      dim3((unsigned)ceil_div(d, BM), (unsigned)col_tiles, (unsigned)slabs),
+      x, tt, dst, d, n, d, ldt, c, c, slab_rows, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (slabs > 1)
+    fp32_tiles::sum_slabs_kernel<<<fp32_tiles::sum_slabs_blocks(d * c), 256,
+                                   0, stream>>>(part, out, d * c, slabs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NT = 1>
+int by_tiles(int nt, const T* x, const float* w, float* wt, float* tt,
+             float* part, float* out, int64_t n, int64_t d, int64_t c,
+             int slabs, cudaStream_t stream) {
+  if constexpr (NT > NT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (nt == NT)
+      return launch<T, NT>(x, w, wt, tt, part, out, n, d, c, slabs, stream);
+    return by_tiles<T, NT + 1>(nt, x, w, wt, tt, part, out, n, d, c, slabs,
+                               stream);
+  }
+}
+
+}  // namespace
+
+// dtype of x: 0 = float32, 1 = bfloat16. nt: 8-column tiles of one column
+// tile, 1 to 20 (repro_torch's column_tiles); c is covered by
+// ceil(c / (8 nt)) column tiles of ldt = 8 nt times that many columns
+// together. Scratch: wt holds ldt * round32(d) floats, tt ldt * round32(n)
+// (round32: up to a multiple of 32), part slabs * d * c floats when
+// slabs > 1 (unused otherwise). Returns a cudaError_t.
 extern "C" int normal_matvec_launch(int dtype, const void* x, const void* w,
-                                    void* t, void* part, void* out,
-                                    int64_t n, int64_t d, int64_t c,
-                                    int slabs, void* stream) {
+                                    void* wt, void* tt, void* part,
+                                    void* out, int64_t n, int64_t d,
+                                    int64_t c, int nt, int slabs,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  float* tp = static_cast<float*>(t);
+  const float* w32 = static_cast<const float*>(w);
+  float* wtp = static_cast<float*>(wt);
+  float* ttp = static_cast<float*>(tt);
   float* pp = static_cast<float*>(part);
   float* op = static_cast<float*>(out);
   if (dtype == 0)
-    launch<float>(x, wp, tp, pp, op, n, d, c, slabs, s);
-  else
-    launch<__nv_bfloat16>(x, wp, tp, pp, op, n, d, c, slabs, s);
-  return (int)cudaGetLastError();
+    return by_tiles<float>(nt, static_cast<const float*>(x), w32, wtp, ttp,
+                           pp, op, n, d, c, slabs, s);
+  return by_tiles<__nv_bfloat16>(nt, static_cast<const __nv_bfloat16*>(x),
+                                 w32, wtp, ttp, pp, op, n, d, c, slabs, s);
 }

@@ -36,10 +36,12 @@ _C = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 SIGNATURES = {
-    # entry: argtypes (dtype, pointers..., sizes..., [slabs | scale], stream)
+    # entry: argtypes (dtype, pointers..., sizes..., [nt,] [slabs | scale],
+    # stream)
     "gram": ("gram_launch", [_INT, _C, _C, _C, _I64, _I64, _INT, _C]),
     "normal_matvec": ("normal_matvec_launch",
-                      [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT, _C]),
+                      [_INT, _C, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT,
+                       _INT, _C]),
     "rf_map": ("rf_map_launch",
                [_INT, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float, _C]),
     # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window, scale,
@@ -76,7 +78,8 @@ def nvcc() -> str:
 
 
 def _sources(name: str) -> list[Path]:
-    return [CSRC / f"{name}.cu", CSRC / "fp32_tiles.cuh"]
+    return [CSRC / f"{name}.cu", CSRC / "fp32_tiles.cuh",
+            CSRC / "tc_mma.cuh", CSRC / "wgmma_tf32.cuh"]
 
 
 def library_path(name: str) -> Path:

@@ -16,6 +16,13 @@ HEAD_DIMS = (32, 64, 128, 256)
 LAUNCHES = device.LaunchCounter()
 
 
+def _tiles_align(t: torch.Tensor) -> bool:
+    """Every row of ``t`` starts on a 16-byte boundary: the bf16 kernel
+    copies 16-byte chunks (cp.async)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int) -> torch.Tensor:
     """Causal attention over keys in (pos - window, pos]. q: (B, H, S, D);
@@ -23,7 +30,10 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h to kv head h // (H // K). Any S and any window >= 1 (window >= S is
     causal attention). On CUDA the last axis must be contiguous; other
     strides are free, so (B, S, H, D) tensors pass as
-    ``x.transpose(1, 2)`` views."""
+    ``x.transpose(1, 2)`` views; in bf16 they must keep rows 16-byte
+    aligned. fp32 runs on the CUDA cores, bf16 on the tensor cores with
+    the probabilities split into bf16 hi and lo parts for the product
+    with v."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         device.require_tensor("swa", name, t, 4, contiguous=False)
     if not (q.dtype == k.dtype == v.dtype):
@@ -48,6 +58,11 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("swa: the head_dim axis of q, k, v must be "
                          "contiguous on CUDA")
+    if q.dtype == torch.bfloat16 and not all(_tiles_align(t)
+                                             for t in (q, k, v)):
+        raise ValueError("swa: bf16 on CUDA takes 16-byte aligned q, k, v "
+                         "whose batch, head and position strides are "
+                         "multiples of 8 elements (16-byte tile copies)")
     device.require_grid("swa", batch_heads=b * h)
     out = swa_cuda(q, k, v, window)
     LAUNCHES.add()

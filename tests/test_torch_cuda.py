@@ -103,3 +103,50 @@ def test_cuda_swa_and_lru_scan_match_their_plain_versions(cuda, dtype, tol):
     assert {k: c.value for k, c in counters.items()} == \
         {"gram": 0, "normal_matvec": 0, "rf_map": 0,
          "swa": len(SWA_CASES) + 1, "lru_scan": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_normal_matvec_column_tiles(cuda, dtype, tol):
+    """The tensor-core normal_matvec where its tiling bites: c = 147 and
+    160 (one column tile), 161 (two), row counts off the 128-row tile, an
+    odd d (rows not 16-byte aligned: 4-byte copies or plain loads), and a
+    split reduction (4,100 rows, d = 64: few output tiles)."""
+    from repro_torch.kernels.normal_matvec.ref import normal_matvec_ref
+    g = torch.Generator().manual_seed(2)
+    cases = [(1000, 200, 147), (777, 256, 160), (300, 70, 161),
+             (1000, 37, 147), (4100, 64, 147)]
+    for n, d, c in cases:
+        x = torch.randn(n, d, generator=g).to(cuda, dtype)
+        w = torch.randn(d, c, generator=g).to(cuda)
+        want = normal_matvec_ref(x, w)
+        torch.testing.assert_close(normal_matvec(x, w), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_cuda_swa_routes_by_dtype(cuda, head_dim):
+    """bf16 on the tensor cores and fp32 on the CUDA cores, at S = 300 on
+    (B, S, H, D) views: bf16 within chip_smoke.py's main-shape limit
+    against the plain version on fp32 copies, fp32 within the JAX tests'
+    2e-5 (which a bf16 rounding of the probabilities would miss)."""
+    from chip_smoke import swa_excess
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 300, 8, head_dim, generator=g).to(cuda)
+    k = torch.randn(2, 300, 2, head_dim, generator=g).to(cuda)
+    v = torch.randn(2, 300, 2, head_dim, generator=g).to(cuda)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    for window in (100, 300):
+        got = swa_attention(qh, kh, vh, window=window)
+        torch.testing.assert_close(got, swa_ref(qh, kh, vh, window),
+                                   rtol=2e-5, atol=2e-5)
+        qb, kb, vb = (t.bfloat16() for t in (qh, kh, vh))
+        got = swa_attention(qb, kb, vb, window=window)
+        assert got.dtype == torch.bfloat16
+        assert got.transpose(1, 2).is_contiguous()
+        want = swa_ref(qb.float(), kb.float(), vb.float(), window)
+        assert swa_excess(got, want)[1] <= 1.0

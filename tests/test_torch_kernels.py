@@ -20,7 +20,7 @@ from repro_torch.kernels import device, launch_counters
 from repro_torch.kernels.gram.gram import gram_slabs
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.normal_matvec.normal_matvec import \
-    normal_matvec_slabs
+    column_tiles, normal_matvec_slabs
 from repro_torch.kernels.normal_matvec.ops import normal_matvec
 from repro_torch.kernels.rf_map.ops import rf_map, rf_map_apply
 from repro_torch.kernels.rf_map.ref import rf_weights
@@ -113,6 +113,26 @@ def test_cpu_wrappers_launch_nothing():
          "lru_scan": 0}
 
 
+def test_cpu_path_settles_vector_math_before_the_first_plain_version(
+        monkeypatch):
+    """MKL's vector math sets itself up on its first call; split across
+    OpenMP threads, that first call left one thread's share of a cos up
+    to 1.5e-4 off (the rf_map parity test failed so under a loaded CPU).
+    The wrappers' CPU path makes one single-threaded call of each function
+    first (device.settle_cpu_vector_math)."""
+    calls = []
+    settle = device.settle_cpu_vector_math
+    monkeypatch.setattr(device, "_settled", False)
+    monkeypatch.setattr(device, "settle_cpu_vector_math",
+                        lambda: calls.append(1) or settle())
+    x = torch.randn(300, 8)
+    z = rf_map(x, 16)
+    assert calls and device._settled
+    w, b = rf_weights(8, 16, 1.0, 0)
+    want = np.sqrt(2.0 / 16) * np.cos(x.double().numpy() @ w + b)
+    np.testing.assert_allclose(z.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("bad,err", [
     (lambda: gram(torch.randn(8, 4).T), ValueError),          # strided
     (lambda: gram(torch.randn(8, 4, dtype=torch.float64)), TypeError),
@@ -136,11 +156,27 @@ def test_split_reductions_only_when_tiles_cannot_fill_the_card():
     assert gram_slabs(device.MAX_SLAB_ROWS, 8096, 132) == 1
     # d = 440: 10 upper tiles -> split rows into fixed slabs
     assert gram_slabs(1 << 20, 440, 132) == 53
-    # normal_matvec's X^T t at d = 10,000, c = 147: 158 tiles
-    assert normal_matvec_slabs(1 << 18, 10_000, 147, 132) == 4
+    # normal_matvec's X^T t at d = 10,000, c = 147: 79 tiles of 128 rows
+    # by one 152-column tile -> 7 slabs (4 per SM over 132 SMs)
+    assert normal_matvec_slabs(1 << 18, 10_000, 147, 132) == 7
     # a short matrix keeps at least MIN_SLAB_ROWS rows per slab
     assert gram_slabs(1000, 440, 132) == 1000 // device.MIN_SLAB_ROWS
     assert gram_slabs(100, 440, 132) == 1
+
+
+def test_normal_matvec_column_tiles_cover_c_with_little_padding():
+    """8-column mma tiles, at most 20 (160 columns) to a block: c = 147
+    takes one tile of 152 columns (3 % padding); above 160, as few
+    near-equal tiles as fit."""
+    assert column_tiles(147) == (1, 19)
+    assert column_tiles(160) == (1, 20)
+    assert column_tiles(161) == (2, 11)
+    assert column_tiles(1) == (1, 1)
+    assert column_tiles(1000) == (7, 18)
+    for c in range(1, 700):
+        tiles, nt = column_tiles(c)
+        assert 1 <= nt <= 20 and tiles * nt * 8 >= c
+        assert (tiles - 1) * nt * 8 < c       # no tile is all padding
 
 
 def test_no_slab_runs_longer_than_the_accuracy_cap():

@@ -1,0 +1,165 @@
+"""The arithmetic plans of the port's two tensor-core kernels, emulated in
+plain PyTorch on the CPU and held to the limits the card is held to.
+
+* normal_matvec (csrc/normal_matvec.cu) multiplies in 3xTF32: each fp32
+  operand splits into hi = tf32(x) and lo = tf32(x - hi), TF32 being fp32
+  with its 13 low mantissa bits cleared, and a b ~ a_hi b_hi + a_hi b_lo
+  + a_lo b_hi. It must stay within the 3e-5 rule against the float64
+  product, where one-pass TF32 must not.
+* swa's bf16 route (csrc/swa.cu) splits the probabilities into two bf16
+  parts, hi = bf16(p) and lo = bf16(p - hi), for the product with v,
+  keeps the row sum in fp32, and rescales a running fp32 accumulator
+  block by block (64 keys). It must stay within chip_smoke.py's SWA_RTOL /
+  SWA_ATOL_RMS limit, which must still reject a window one key short and
+  a softmax scale 10 % high; rounding p once to bf16 must not stay
+  within it (the reason for the split).
+
+No card, no kernel: these show that the plans, not the kernels, meet the
+limits; tests/test_torch_cuda.py and chip_smoke.py hold the kernels to
+the same limits on the card."""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import swa_excess
+from repro_torch.kernels.swa.ref import swa_ref
+
+NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
+TF32_MASK = -(1 << 13)   # 0xffffe000 as a signed 32-bit pattern
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 with the 13 low mantissa bits cleared (what the tensor cores
+    read of a TF32 operand)."""
+    return (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
+              exact_a: bool) -> torch.Tensor:
+    """a @ b as the kernel forms it: three TF32 products summed in fp32, or
+    two when a is exact in TF32 (a bf16 X)."""
+    bh, bl = split(b)
+    if exact_a:
+        return a @ bl + a @ bh
+    ah, al = split(a)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def nm_3xtf32(x: torch.Tensor, w: torch.Tensor, exact_x: bool):
+    t = mm_3xtf32(x, w, exact_x)
+    return mm_3xtf32(x.T, t, exact_x)
+
+
+def nm_tf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return tf32(x.T) @ tf32(tf32(x) @ tf32(w))
+
+
+def within_rule(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """chip_smoke.close's rule: |got - want| <= tol (max|want| + |want|)."""
+    err = (got.double() - want).abs()
+    return bool((err <= NM_TOL * (want.abs().max() + want.abs())).all())
+
+
+def _x_w(n, d, c, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((d, c), dtype=np.float32))
+    return x.to(dtype).float(), w
+
+
+@pytest.mark.parametrize("n,d,c", [(256, 64, 4), (300, 128, 1),
+                                   (512, 440, 16), (1000, 37, 3),
+                                   (130, 32, 2), (1000, 200, 147),
+                                   (777, 256, 160)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_matvec_3xtf32_meets_the_fp32_rule(n, d, c, dtype):
+    x, w = _x_w(n, d, c, dtype)
+    xd = x.double()
+    want = xd.T @ (xd @ w.double())
+    assert within_rule(nm_3xtf32(x, w, dtype == torch.bfloat16), want)
+
+
+def test_normal_matvec_3xtf32_meets_the_rule_at_a_cg_slice():
+    """8,192 rows of the CG shape (d = 10,000 random features, c = 147
+    classes): one-pass TF32 misses the rule there, 3xTF32 keeps it."""
+    x, w = _x_w(8_192, 10_000, 147, torch.float32, seed=1)
+    xd = x.double()
+    want = xd.T @ (xd @ w.double())
+    del xd
+    assert within_rule(nm_3xtf32(x, w, False), want)
+    assert not within_rule(nm_tf32(x, w), want)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def swa_bf16_plan(q, k, v, window, split_p=True, block=64):
+    """swa's bf16 route in plain torch: fp32 scores of bf16 inputs, an
+    online softmax over 64-key blocks, P as bf16 hi + lo parts (or, with
+    ``split_p`` false, rounded once to bf16) for P V while the row sum
+    keeps fp32, output rounded to bf16. q (B, H, S, D), k, v (B, K, S, D)
+    bf16."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    qg = q.float().reshape(b, kh, h // kh, s, d)
+    scores = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * d ** -0.5
+    pos = torch.arange(s)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - window)
+    scores = scores.masked_fill(~band, -torch.inf)
+    m = torch.full(scores.shape[:-1] + (1,), -torch.inf)
+    ell = torch.zeros_like(m)
+    acc = torch.zeros(b, kh, h // kh, s, d)
+    for k0 in range(0, s, block):
+        sc = scores[..., k0:k0 + block]
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp(m - base)
+        p = torch.exp(sc - base)
+        ell = alpha * ell + p.sum(-1, keepdim=True)
+        vb = v.float()[:, :, None, k0:k0 + block]
+        hi = _bf16(p)
+        pv = hi @ vb
+        if split_p:
+            pv = _bf16(p - hi) @ vb + pv
+        acc = alpha * acc + pv
+        m = m_new
+    return (acc / ell).reshape(b, h, s, d).bfloat16()
+
+
+def test_swa_bf16_plan_meets_the_main_shape_limit():
+    """A reduced main shape (S 1,024, window 256, D 256, MQA): the plan
+    passes chip_smoke.py's limit, P rounded once to bf16 does not, and the
+    limit still rejects both planted faults."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, hh, 1024, 256), dtype=np.float32)).bfloat16()
+        for hh in (4, 1, 1))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = swa_ref(qf, kf, vf, 256)
+    _, ratio = swa_excess(swa_bf16_plan(q, k, v, 256), want)
+    assert ratio <= 1.0
+    assert swa_excess(swa_bf16_plan(q, k, v, 256, split_p=False),
+                      want)[1] > 1.0
+    assert swa_excess(swa_ref(qf, kf, vf, 255).bfloat16(), want)[1] > 1.0
+    assert swa_excess(swa_ref(qf * 1.1, kf, vf, 256).bfloat16(), want)[1] \
+        > 1.0
+
+
+def test_swa_bf16_plan_matches_the_kernel_contract_at_ragged_shapes():
+    """S not a multiple of 64, GQA, window >= S: the block-wise plan is the
+    same function as the plain version within the bf16 limit."""
+    rng = np.random.default_rng(1)
+    for s, window, h, kh, d in [(300, 100, 4, 2, 32), (200, 1000, 2, 1, 64),
+                                (130, 1, 2, 2, 128)]:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (2, hh, s, d), dtype=np.float32)).bfloat16()
+            for hh in (h, kh, kh))
+        want = swa_ref(q.float(), k.float(), v.float(), window)
+        assert swa_excess(swa_bf16_plan(q, k, v, window), want)[1] <= 1.0
