@@ -107,10 +107,15 @@ KERNEL_META = {
 KERNEL_DESIGN = {
     "gram": "fp32 CUDA cores, 128x128 register tiles",
     "normal_matvec": "3xTF32 wgmma",
-    "rf_map": "fp32 CUDA cores, 128x128 register tiles",
+    "rf_map": "3xTF32 wgmma, persistent 128x160 tiles columns fastest, "
+              "cos epilogue staged through shared memory",
     "swa": "mma.sync bf16",
-    "lru_scan": "fp32 CUDA cores, one thread per channel",
+    "lru_scan": "fp32 CUDA cores, one thread per channel, fed by a "
+                "cp.async.bulk ring in shared memory",
 }
+# keys a kernel's record may add to its entry in the kernels line
+KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
+                 "copy_ceiling_ms")
 
 
 def emit(obj) -> None:
@@ -221,8 +226,12 @@ def check_test_shapes() -> None:
             a = _randn(rng, (n, d), dt)
             close("gram", gram(a), gram_ref(a), dn)
             n_checked += 1
+        # the JAX tests' shapes, then the tensor-core kernel's edges: a
+        # partial column tile (D 161, 10,000), a partial row tile (130,
+        # 257), rows not 16-byte aligned (d 33), a short last stage (440)
         for n, d, dd in [(256, 128, 256), (300, 70, 200), (512, 440, 1024),
-                         (100, 33, 77)]:
+                         (100, 33, 77), (130, 440, 161), (257, 440, 10000),
+                         (1000, 33, 10000)]:
             x = _randn(rng, (n, d), dt)
             w, b = (torch.from_numpy(v).to(DEVICE)
                     for v in rf_weights(d, dd, 2.0, 1))
@@ -274,7 +283,10 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
                 raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
                                      f"{window}: {ratio:.3f} x the limit")
         n += 1
-    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512)]:
+    # the JAX sweep, then the copy ring's edges: S = 1, S and W off the
+    # 32-step x 32-channel tile, rows not 16-byte aligned (W 33, 100 bf16)
+    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512), (1, 1, 64),
+                    (3, 77, 100), (2, 300, 33)]:
         a = torch.sigmoid(_randn(rng, (b, s, w), torch.float32)).to(dt)
         x = (0.1 * _randn(rng, (b, s, w), torch.float32)).to(dt)
         h0 = _randn(rng, (b, w), torch.float32)
@@ -378,13 +390,19 @@ def check_main_shapes() -> dict:
                              "float32", absolute_atol=True))
     del z
     torch.cuda.empty_cache()
-    bound, by = bound_ms(4.0 * (n * d + d * dd + dd + n * dd),
-                         2.0 * n * d * dd)
+    # 3xTF32: three TF32 products for each product on the tensor cores
+    nbytes, flops = 4.0 * (n * d + d * dd + dd + n * dd), 2.0 * n * d * dd
+    bound, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
     out["rf_map"] = {
         "shape": [n, d, dd], "max_abs_err": err,
+        "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
         "kernel_ms": cuda_time_ms(lambda: rf_map_apply(x, w, b)),
         "plain_ms": cuda_time_ms(lambda: rf_map_ref(x, w, b)),
-        "library_ms": None, "bound_ms": bound, "bound_by": by}
+        "library_ms": cuda_time_ms(lambda: torch.addmm(b, x, w)),
+        "library_note": "torch.addmm(b, x, w): the product and bias only, "
+                        "without cos and scale; any unfused route costs at "
+                        "least this",
+        "bound_ms": bound, "bound_by": by}
     del x, w, b
     torch.cuda.empty_cache()
     out.update(check_lm_main_shapes())
@@ -456,12 +474,17 @@ def check_lm_main_shapes() -> dict:
     err = close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0),
                 "float32", absolute_atol=True)
     bound, by = bound_ms(4.0 * (3 * b * s * w + b * w), 2.0 * b * s * w)
+    o = torch.empty_like(a)
     out["lru_scan"] = {
         "shape": [b, s, w], "dtype": "float32", "max_abs_err": err,
-        "kernel_ms": cuda_time_ms(lambda: lru_scan(a, x, h0)),
+        "kernel_ms": cuda_time_ms(lambda: lru_scan(a, x, h0), 20),
         "plain_ms": cuda_time_ms(lambda: lru_scan_ref(a, x, h0)),
+        # what the card delivers for the same 12 bytes an element (read
+        # two, write one), beside the data-sheet bound; not a library
+        # counterpart of the scan
+        "copy_ceiling_ms": cuda_time_ms(lambda: torch.add(a, x, out=o), 20),
         "library_ms": None, "bound_ms": bound, "bound_by": by}
-    del a, x, h0
+    del a, x, h0, o
     torch.cuda.empty_cache()
     return out
 
@@ -519,6 +542,46 @@ def true_residual(x, y, w_cg, lam, bandwidth, seed, rows=65_536) -> float:
                   / torch.linalg.norm(rhs, dim=0)).max())
 
 
+# CG's 20th residual against the last bits of Z: the same solve on the
+# plain version's Z, scaled elementwise by 1 + CG_PERTURB N(0, 1) (about
+# one ulp of fp32) under these seeds
+CG_PERTURB = 1e-7
+CG_PERTURB_SEEDS = (1, 2, 3)
+
+
+def cg_rounding_spread(x, y, lam, bandwidth) -> dict:
+    """The 20-iteration relative residual of the torch backend's CG
+    (rf_dim = 0, tol = 0) on the plain version's Z, and on that Z with its
+    last bits perturbed under CG_PERTURB_SEEDS. CG on this ill-conditioned
+    system follows its rounding: the spread is how far a kernel whose Z
+    differs from the plain version's in the last bits can move the
+    residual, whatever its accuracy."""
+    import torch
+    from repro_torch.core.backends.torch_backend import _cg_solve
+    from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weights
+    wn, bn = rf_weights(x.shape[1], RF_DIM, bandwidth, 0)
+    w, b = torch.from_numpy(wn).to(DEVICE), torch.from_numpy(bn).to(DEVICE)
+    xd, yd = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    out = {"plain_z": None, "perturbed_z": []}
+    for seed in (None, *CG_PERTURB_SEEDS):
+        z = rf_map_ref(xd, w, b)
+        if seed is not None:
+            g = torch.Generator(device=DEVICE).manual_seed(seed)
+            for lo in range(0, z.shape[0], REF_BLOCK_ROWS):
+                # no named view of z: one would keep its 42 GB alive
+                rows = min(REF_BLOCK_ROWS, z.shape[0] - lo)
+                z[lo:lo + rows].mul_(1 + CG_PERTURB * torch.randn(
+                    (rows, z.shape[1]), generator=g, device=DEVICE))
+        res = _cg_solve(z, yd, lam=lam, max_iters=CG_ITERS,
+                        tol=0.0)["relative_residual"]
+        del z
+        if seed is None:
+            out["plain_z"] = res
+        else:
+            out["perturbed_z"].append(res)
+    return out
+
+
 def phase_cg(ac, counters) -> dict:
     from repro_torch.core.libraries import skylark
     ac.register_library("skylark", skylark)
@@ -571,6 +634,7 @@ def phase_cg(ac, counters) -> dict:
                              f"recomputed {recomputed}")
     for h in (al_x, al_y, W, base):
         h.free()
+    spread = cg_rounding_spread(x, y, lam, bandwidth)
     rec = {"phase": "cg", "rows": CG_ROWS, "d": TIMIT_D, "rf_dim": RF_DIM,
            "classes": TIMIT_C, "iterations": CG_ITERS,
            "small_cg_max_err": small_err, "generate_s": gen_s,
@@ -580,6 +644,8 @@ def phase_cg(ac, counters) -> dict:
            "per_iteration_ms": per_iter_ms, "fetch_w_s": fetch_s,
            "relative_residual": reported,
            "recomputed_relative_residual": recomputed,
+           "relative_residual_plain_z": spread["plain_z"],
+           "relative_residual_perturbed_plain_z": spread["perturbed_z"],
            "residual_history": stats["residual_history"],
            "launches": launches}
     emit(rec)
@@ -852,7 +918,7 @@ def main() -> int:
          "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"],
          "design": KERNEL_DESIGN[name],
-         **{k: kernels[name][k] for k in ("bound_ms_fp32_cuda_cores",)
+         **{k: kernels[name][k] for k in KERNEL_EXTRAS
             if k in kernels[name]}}
         for name in sorted(kernels)]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -81,7 +81,7 @@ from repro_torch.analysis import locktrace, statemachine
 from repro_torch.common.device import explicit_device
 from repro_torch.core import backends as backend_registry
 from repro_torch.core import cache as caching, compilecache, configopts, \
-    protocol, scheduler as scheduling
+    layout_tag, protocol, scheduler as scheduling
 from repro_torch.core.backends import base as backend_base
 from repro_torch.core.costmodel import CacheLog, CompileLog, QosLog, TaskLog, \
     TransferLog, routine_price_seconds
@@ -213,7 +213,7 @@ class SessionView:
         return self._engine.put(array, name=name, session=self._session.id)
 
     def get(self, handle: MatrixHandle) -> torch.Tensor:
-        return self._engine.get(handle, session=self._session.id)
+        return self._engine._resolve(handle, session=self._session.id)[0]
 
     def overwrite(self, handle: MatrixHandle, array: torch.Tensor) -> None:
         self._engine.overwrite(handle, array, session=self._session.id)
@@ -1095,13 +1095,16 @@ class AlchemistEngine:
         — correct, just never dedup'd. ``layout`` is the store's layout
         tag: the transfer layer and routine outputs pass the engine's
         distributed layout (:meth:`dist_layout`), tests simulating a
-        foreign distribution pass another; ``None`` tags a bare tensor
-        ``replicated``, as the JAX engine tags an array that carries no
-        distributed sharding."""
+        foreign distribution pass another; ``None`` reads the tag of a
+        tensor :meth:`get` handed out or computed from one
+        (:mod:`~repro_torch.core.layout_tag`), and tags any other tensor
+        or host array ``replicated``, as the JAX engine tags an array that
+        carries no distributed sharding."""
+        array, tagged = layout_tag.untag(array)
         array = self._on_device(array)
         with self._state_lock:
             sess = self.session(session)
-            lay = layout if layout is not None else REPLICATED
+            lay = layout if layout is not None else tagged
             if lay not in LAYOUTS:
                 raise ValueError(f"unknown layout {lay!r} "
                                  f"(one of {LAYOUTS})")
@@ -1130,7 +1133,20 @@ class AlchemistEngine:
         """Resolve a handle to its device tensor, transparently reloading a
         spilled store. ``session=None`` is the trusted in-process path
         (global lookup); a session ID confines resolution to that
-        namespace plus the system one (protocol-level isolation)."""
+        namespace plus the system one (protocol-level isolation).
+
+        The tensor is the store's own (a view, no copy), tagged with the
+        store's layout (:class:`~repro_torch.core.layout_tag.LayoutTensor`):
+        what is computed from it keeps the tag, and :meth:`put` and
+        :meth:`overwrite` read it back, as the JAX engine reads the
+        sharding such an array keeps (``layout_of``)."""
+        return layout_tag.tag(*self._resolve(handle, session))
+
+    def _resolve(self, handle: MatrixHandle, session: Optional[int] = None
+                 ) -> tuple:
+        """(the store's plain tensor, its layout) for a handle, reloading
+        a spilled store: what :meth:`get` tags, and what routines (through
+        :class:`SessionView`) and argument materialization read."""
         with self._state_lock:
             entry = self._visible_entry(handle, session)
             store = self._stores[entry.store]
@@ -1142,7 +1158,7 @@ class AlchemistEngine:
                     self._stm.note("store", (self._stm_dom, entry.store),
                                    "LIVE", site="get")
                 self._enforce_budget(keep=entry.store)
-            return store.array
+            return store.array, store.layout
 
     def overwrite(self, handle: MatrixHandle, array,
                   session: Optional[int] = None) -> None:
@@ -1159,11 +1175,13 @@ class AlchemistEngine:
         on a fresh fingerprint and every cache entry touching this handle
         is invalidated — an overwritten result must never be served.
 
-        A tensor keeps the store's layout, as an array computed from an
-        engine array keeps its sharding in the JAX engine (``layout_of``);
-        a host array is ``replicated``, as ``layout_of`` reads a host
-        array."""
-        from_host = not isinstance(array, torch.Tensor)
+        The store takes the new array's layout tag: a tensor :meth:`get`
+        handed out, or one computed from it, carries its store's layout,
+        as an array computed from an engine array keeps its sharding in
+        the JAX engine (``layout_of``); any other tensor and a host array
+        are ``replicated``, as ``layout_of`` reads them
+        (:mod:`~repro_torch.core.layout_tag`)."""
+        array, lay = layout_tag.untag(array)
         array = self._on_device(array)
         with self._state_lock:
             entry = self._visible_entry(handle, session)
@@ -1180,7 +1198,6 @@ class AlchemistEngine:
                     f"{tuple(array.shape)}/{dtype_name(array.dtype)}")
             store = self._stores[entry.store]
             fp = f"v:{next(self._clock)}"
-            lay = REPLICATED if from_host else store.layout
             if store.refs > 1:                          # copy-on-write
                 store.refs -= 1
                 store_id = next(self._store_ids)
@@ -1952,9 +1969,7 @@ class AlchemistEngine:
         when the store's layout is not one the implementation accepts
         (the Elemental redistribution step, made visible and charged to
         the task's accounting)."""
-        arr = self.get(handle, session=session)
-        with self._state_lock:
-            lay = self._stores[self._entry(handle).store].layout
+        arr, lay = self._resolve(handle, session=session)
         if impl.accepts is not None and lay not in impl.accepts:
             # one device holds the whole tensor in every layout, so the
             # redistribution to impl.relayout_to moves nothing here; it

@@ -55,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import cache as caching
+from repro_torch.core import cache as caching, layout_tag
 from repro_torch.core.costmodel import (
     TransferRecord,
     stream_transfer_seconds_from_chunks,
@@ -396,7 +396,7 @@ def to_client(engine: AlchemistEngine, handle: MatrixHandle,
     if not isinstance(engine, AlchemistEngine):
         return _to_client_bridge(engine, handle, num_partitions,
                                  session=session, chunk_rows=chunk_rows)
-    arr = engine.get(handle, session=session)
+    arr, _ = layout_tag.untag(engine.get(handle, session=session))
     sess = SYSTEM_SESSION if session is None else session
     if arr.ndim < 1 or arr.shape[0] == 0:
         host = tensor_to_host(arr)

@@ -1,5 +1,6 @@
-// Shared building blocks of the port's three fp32 matrix-product kernels
-// (gram.cu, normal_matvec.cu, rf_map.cu).
+// Building blocks of the port's fp32 CUDA-core matrix product (gram.cu),
+// and the helpers the other kernels share (to_f32, ceil_div, the
+// fixed-order slab sum).
 //
 // One block computes a 128 x 128 tile of an fp32 output with 256 threads;
 // each thread owns an 8 x 8 register tile, split into four 4 x 4 quadrants
@@ -52,27 +53,6 @@ __device__ __forceinline__ void load_rows(Panel& s, const T* __restrict__ m,
     float v = 0.f;
     if (gr < k_end && gc < cols) v = to_f32(m[gr * ld + gc]);
     s[r][c] = v;
-  }
-}
-
-// s[kk][r] = m[r0 + r][k0 + kk]: a 128-row, BK-column slice of a
-// row-major matrix, stored transposed so the product loop reads it like
-// load_rows' panels. Sixteen threads read one row's BK contiguous values.
-template <typename T>
-__device__ __forceinline__ void load_cols(Panel& s, const T* __restrict__ m,
-                                          int64_t ld, int64_t r0,
-                                          int64_t rows, int64_t k0,
-                                          int64_t k_end, int tid) {
-#pragma unroll
-  for (int q = 0; q < (BM * BK) / THREADS; ++q) {
-    const int e = tid + THREADS * q;
-    const int kk = e & (BK - 1);
-    const int r = e >> 4;
-    const int64_t gr = r0 + r;
-    const int64_t gk = k0 + kk;
-    float v = 0.f;
-    if (gr < rows && gk < k_end) v = to_f32(m[gr * ld + gk]);
-    s[kk][r] = v;
   }
 }
 
@@ -166,50 +146,6 @@ __global__ void sum_slabs_kernel(const float* __restrict__ part,
     float s = 0.f;
     for (int z = 0; z < slabs; ++z) s += part[(int64_t)z * size + e];
     out[e] = s;
-  }
-}
-
-// C[M x N] = A B with A (M x K) and B (K x N) row-major, the whole
-// reduction inside the block. With kCos the epilogue applies
-// scale * cos(acc + bias[col]) in registers before the one write of C.
-template <typename TA, typename TB, bool kCos>
-__global__ void __launch_bounds__(THREADS)
-    gemm_nn_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   int64_t M, int64_t K, int64_t N, float scale) {
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int64_t n0 = (int64_t)blockIdx.y * BN;
-  __shared__ __align__(16) Panel as;
-  __shared__ __align__(16) Panel bs;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    load_cols(as, a, K, m0, M, k0, K, tid);
-    load_rows(bs, b, N, k0, K, n0, N, tid);
-    __syncthreads();
-    mma_panel(as, bs, acc, tx, ty);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int64_t c = n0 + tile_col(j, tx);
-    if (c >= N) continue;
-    const float bc = kCos ? bias[c] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t r = m0 + tile_row(i, ty);
-      if (r >= M) continue;
-      out[r * N + c] = kCos ? scale * cosf(acc[i][j] + bc) : acc[i][j];
-    }
   }
 }
 

@@ -52,6 +52,7 @@
 //     X's rows are not 16-byte aligned). w^T and t^T are laid out in
 //     32-deep tiles, so a stage's B is 8 N x 128 contiguous bytes and not
 //     N rows from N pages, which had made the X^T t launch 1.5x slower.
+// The main loop's pieces are shared with rf_map.cu (tf32_mainloop.cuh).
 // B is K-major in shared memory, as TF32 wgmma requires: w and t are kept
 // transposed, w^T written by transpose_tiles_kernel and t^T by the first
 // launch. No swizzle: 8 x 16-byte core matrices, the 8 of one 8-row group
@@ -69,96 +70,17 @@
 //                      that sum_slabs_kernel adds in slab order. No
 //                      atomics: results repeat bit for bit.
 #include "fp32_tiles.cuh"
-#include "tc_mma.cuh"
-#include "wgmma_tf32.cuh"
+#include "tf32_mainloop.cuh"
 
 namespace {
 
-constexpr int BM = 128;          // output rows of a block
-constexpr int BK = 32;           // reduction depth of one stage
-constexpr int KG = BK / 4;       // 16-byte core-matrix columns of a stage
+using tf32::BK;
+using tf32::BM;
+using tf32::Buf;
+using tf32::Layout;
+using tf32::THREADS;
+
 constexpr int NT_MAX = 20;       // 8-column tiles of a block (160)
-constexpr int THREADS = 256;     // two warpgroups
-
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major matrix
-// with leading dimension ld into a shared tile with row stride SLD;
-// elements at or past (r_end, c_end) read as zero.
-template <typename T, int ROWS, int COLS, int SLD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ g,
-                                          int64_t ld, int64_t r0,
-                                          int64_t r_end, int64_t c0,
-                                          int64_t c_end, bool vec,
-                                          int tid) {
-  constexpr int E = 16 / sizeof(T);   // elements of a 16-byte chunk
-  if (vec) {
-    constexpr int CPR = COLS / E;
-#pragma unroll
-    for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
-      const int e = tid + THREADS * i;
-      const int r = e / CPR;
-      const int cc = (e % CPR) * E;
-      const int64_t gr = r0 + r;
-      const int64_t gc = c0 + cc;
-      int64_t n = gr < r_end ? c_end - gc : 0;
-      n = n < 0 ? 0 : (n > E ? E : n);
-      tc::cp_async16(tc::smem_u32(dst + r * SLD + cc),
-                     n ? g + gr * ld + gc : g, (int)n * (int)sizeof(T));
-    }
-    return;
-  }
-#pragma unroll 4
-  for (int i = 0; i < ROWS * COLS / THREADS; ++i) {
-    const int e = tid + THREADS * i;
-    const int r = e / COLS;
-    const int c = e % COLS;
-    const int64_t gr = r0 + r;
-    const int64_t gc = c0 + c;
-    const bool ok = gr < r_end && gc < c_end;
-    if constexpr (sizeof(T) == 4) {
-      tc::cp_async4(tc::smem_u32(dst + r * SLD + c),
-                    ok ? g + gr * ld + gc : g, ok ? 4 : 0);
-    } else {
-      dst[r * SLD + c] = ok ? g[gr * ld + gc] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// shared-memory descriptor of a K-major, unswizzled operand whose 8 x
-// 16-byte core matrices lie 128 bytes apart along K and KG * 128 bytes
-// apart along N (PTX ISA "Matrix Descriptor Format")
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  constexpr uint64_t LBO = 128 >> 4;
-  constexpr uint64_t SBO = (KG * 128) >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (LBO << 16) | (SBO << 32);
-}
-
-// Shared memory of one block. A as cp.async lands it: X[m][k] as
-// [BM][BK + pad] (kXT false) or X[k][m] as [BK][BM + 8] (kXT true); the
-// pads put the fragment loads of a warp in 32 distinct banks. B^T: 8 NT
-// rows (n) x BK (k) fp32 as core matrices, hi and lo parts. Four stages
-// where they fit in the 227 KB a block may have (N <= 152 in fp32), else
-// three.
-template <typename T, bool kXT, int NT>
-struct Layout {
-  static constexpr int A_ROWS = kXT ? BK : BM;
-  static constexpr int A_COLS = kXT ? BM : BK;
-  static constexpr int A_LD = A_COLS + (kXT ? 8 : 16 / (int)sizeof(T));
-  static constexpr int A_BYTES = A_ROWS * A_LD * (int)sizeof(T);
-  static constexpr int B_BYTES = 8 * NT * BK * 4;
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
-  static constexpr int STAGES = 4 * STAGE_BYTES <= 232448 ? 4 : 3;
-  static constexpr size_t BYTES = (size_t)STAGES * STAGE_BYTES;
-};
-
-template <int B>
-struct Buf {
-  static constexpr int value = B;
-};
 
 // C (M x N) [+ z M ldo] = A B over k in this slab, k_begin a multiple of
 // BK. A(m, k) = X[m][k] (kXT false) or X[k][m] (kXT true). B^T is fp32 in
@@ -178,11 +100,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;             // warpgroup: rows 64 wg .. + 63
-  const int wq = (tid >> 5) & 3;       // warp in the warpgroup: 16 rows
   const int lane = tid & 31;
-  const int g = lane >> 2;
   const int t = lane & 3;
+  const int row = (tid >> 5) * 16 + (lane >> 2);   // this thread's A row
   const int64_t m0 = (int64_t)blockIdx.x * BM;
   const int64_t c0 = (int64_t)blockIdx.y * 8 * NT;
   const int64_t k_begin = (int64_t)blockIdx.z * slab_rows;
@@ -195,101 +115,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto b_hi = [&](int s) {
     return reinterpret_cast<float*>(smem + s * L::STAGE_BYTES + L::A_BYTES);
   };
-  auto b_lo = [&](int s) { return b_hi(s) + 8 * NT * BK; };
 
   auto load_stage = [&](int s, int64_t k0) {
     if (kXT)
-      load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(a_tile(s), x, ldx, k0,
-                                                  k_end, m0, M, vec_a, tid);
+      tf32::load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(
+          a_tile(s), x, ldx, k0, k_end, m0, M, vec_a, tid);
     else
-      load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(a_tile(s), x, ldx, m0, M,
-                                                  k0, k_end, vec_a, tid);
-    // B^T tile of [k0, k0 + BK): row c0 + n is 128 contiguous bytes, its
-    // 16-byte chunk kc goes to core matrix (n / 8, kc), row n % 8. Eight
-    // consecutive threads take the chunk kc of eight consecutive rows:
-    // one 128-byte line of shared memory, no bank conflict.
-    const float* src = bt + (k0 / BK) * ldt * BK + c0 * BK;
-    float* dst = b_hi(s);
-    for (int e = tid; e < 8 * NT * KG; e += THREADS) {
-      const int n = (e >> 6) * 8 + (e & 7);
-      const int kc = ((e >> 5) & 1) * 4 + ((e >> 3) & 3);
-      const int64_t gk = k0 + 4 * kc;
-      int64_t bytes = (k_end - gk) * 4;
-      bytes = bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes);
-      tc::cp_async16(
-          tc::smem_u32(dst + ((n >> 3) * KG + kc) * 32 + (n & 7) * 4),
-          bytes ? src + n * BK + 4 * kc : bt, (int)bytes);
-    }
+      tf32::load_tile<T, L::A_ROWS, L::A_COLS, L::A_LD>(
+          a_tile(s), x, ldx, m0, M, k0, k_end, vec_a, tid);
+    tf32::load_b<NT>(b_hi(s), bt, ldt, c0, k0, k_end, tid);
   };
 
-  // B of stage s, landed: hi in place, lo beside it
-  auto split_b = [&](int s) {
-    float4* hi = reinterpret_cast<float4*>(b_hi(s));
-    float4* lo = reinterpret_cast<float4*>(b_lo(s));
-    for (int e = tid; e < 8 * NT * KG; e += THREADS) {
-      const float4 v = hi[e];
-      uint32_t h[4], l[4];
-      tc::split_tf32(v.x, h[0], l[0]);
-      tc::split_tf32(v.y, h[1], l[1]);
-      tc::split_tf32(v.z, h[2], l[2]);
-      tc::split_tf32(v.w, h[3], l[3]);
-      hi[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                          __uint_as_float(h[2]), __uint_as_float(h[3]));
-      lo[e] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                          __uint_as_float(l[2]), __uint_as_float(l[3]));
-    }
-    // generic-proxy writes, read next by wgmma (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-
-  // A fragments of a stage's four 8-deep steps, split in registers, in
-  // two buffers: the products of one stage read theirs while the next
-  // stage's are loaded
-  const int row = wg * 64 + wq * 16 + g;   // this thread's first A row
+  // A fragments in two register buffers: the products of one stage read
+  // theirs while the next stage's are loaded
   uint32_t ah[2][BK / 8][4], al[2][BK / 8][4];
-  auto load_a = [&](int s, auto buf) {
-    constexpr int B = decltype(buf)::value;
-    const T* a = a_tile(s);
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row + (e & 1) * 8;
-        const int kk = ks * 8 + t + (e >> 1) * 4;
-        const float v =
-            as_f32(kXT ? a[kk * L::A_LD + r] : a[r * L::A_LD + kk]);
-        if constexpr (kSplitA)
-          tc::split_tf32(v, ah[B][ks][e], al[B][ks][e]);
-        else
-          ah[B][ks][e] = __float_as_uint(v);   // bf16 is exact in TF32
-      }
-  };
-
   float acc[4 * NT];
   float part[4 * NT];
 #pragma unroll
   for (int i = 0; i < 4 * NT; ++i) acc[i] = part[i] = 0.f;
 
-  // the products of stage `it` (A buffer `buf`) into `part`, started from
-  // zero; while they run, the next stage's loads, split and A fragments;
-  // then `part` joins `acc`
+  // the products of stage `it` (A buffer `buf`) into `part`; while they
+  // run, the next stage's loads, split and A fragments; then `part` joins
+  // `acc`
   auto step = [&](int it, auto buf) {
     constexpr int B = decltype(buf)::value;
     const int s = it % STAGES;
     const uint32_t hi_addr = tc::smem_u32(b_hi(s));
-    const uint32_t lo_addr = tc::smem_u32(b_lo(s));
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-      // an 8-deep step reads two core-matrix columns; small terms first
-      const uint64_t dh = kmajor_desc(hi_addr + ks * 256);
-      const uint64_t dl = kmajor_desc(lo_addr + ks * 256);
-      if constexpr (kSplitA)
-        tc::wgmma_tf32<NT>(part, al[B][ks], dh, ks > 0);
-      tc::wgmma_tf32<NT>(part, ah[B][ks], dl, kSplitA || ks > 0);
-      tc::wgmma_tf32<NT>(part, ah[B][ks], dh, 1);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    tf32::mma_stage<NT, kSplitA, B>(part, ah, al, hi_addr,
+                                    hi_addr + L::B_BYTES);
     // both warpgroups waited for their products of stage it - 1 at the end
     // of the last step: its shared memory and A buffer are free
     __syncthreads();
@@ -300,10 +153,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (it + 1 < steps) {
       tc::cp_async_wait<STAGES - 2>();
       __syncthreads();
-      split_b((it + 1) % STAGES);
-      load_a((it + 1) % STAGES, Buf<1 - B>{});
+      tf32::split_b<NT>(b_hi((it + 1) % STAGES), tid);
+      tf32::load_a<T, kXT, NT, 1 - B>(a_tile((it + 1) % STAGES), row, t,
+                                      ah, al);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    tf32::mma_wait();
 #pragma unroll
     for (int i = 0; i < 4 * NT; ++i) acc[i] += part[i];
     __syncthreads();   // the split of it + 1 is visible to every warp
@@ -317,8 +171,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   tc::cp_async_wait<STAGES - 2>();
   __syncthreads();
   if (steps > 0) {
-    split_b(0);
-    load_a(0, Buf<0>{});
+    tf32::split_b<NT>(b_hi(0), tid);
+    tf32::load_a<T, kXT, NT, 0>(a_tile(0), row, t, ah, al);
   }
   __syncthreads();
   for (int it = 0; it < steps; it += 2) {
@@ -351,25 +205,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// wt = w^T in BK-deep tiles (element (col, k) at (k / BK) ldt BK + col BK +
-// k % BK), zero at columns past c and rows past d: the B of the t = X w
-// launch
-__global__ void transpose_tiles_kernel(const float* __restrict__ w,
-                                       float* __restrict__ wt, int64_t d,
-                                       int64_t c, int64_t ldt,
-                                       int64_t size) {
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       e < size; e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t k = e / (ldt * BK) * BK + e % BK;
-    const int64_t col = e / BK % ldt;
-    wt[e] = col < c && k < d ? w[k * c + col] : 0.f;
-  }
-}
-
-bool aligned16(const void* p, int64_t ld_bytes) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld_bytes % 16 == 0;
-}
-
 template <typename T, bool kXT, int NT>
 cudaError_t launch_pass(dim3 grid, const T* x, const float* bt, float* out,
                         int64_t M, int64_t K, int64_t ldx, int64_t ldt,
@@ -382,7 +217,7 @@ cudaError_t launch_pass(dim3 grid, const T* x, const float* bt, float* out,
   if (err != cudaSuccess) return err;
   nm_wgmma_kernel<T, kXT, NT><<<grid, THREADS, bytes, stream>>>(
       x, bt, out, M, K, ldx, ldt, ldo, n_out, slab_rows,
-      aligned16(x, ldx * (int64_t)sizeof(T)));
+      tf32::aligned16(x, ldx * (int64_t)sizeof(T)));
   return cudaGetLastError();
 }
 
@@ -394,8 +229,9 @@ int launch(const T* x, const float* w, float* wt, float* tt, float* part,
   const int64_t col_tiles = ceil_div(c, 8 * (int64_t)NT);
   const int64_t ldt = col_tiles * 8 * NT;
   const int64_t wt_size = ceil_div(d, BK) * BK * ldt;
-  transpose_tiles_kernel<<<fp32_tiles::sum_slabs_blocks(wt_size), 256, 0,
-                           stream>>>(w, wt, d, c, ldt, wt_size);
+  tf32::transpose_tiles_kernel<<<fp32_tiles::sum_slabs_blocks(wt_size),
+                                 256, 0, stream>>>(w, wt, d, c, ldt,
+                                                   wt_size);
   cudaError_t err = launch_pass<T, false, NT>(
       dim3((unsigned)ceil_div(n, BM), (unsigned)col_tiles, 1), x, wt, tt, n,
       d, d, ldt, 0, ldt, d, stream);

@@ -42,8 +42,10 @@ SIGNATURES = {
     "normal_matvec": ("normal_matvec_launch",
                       [_INT, _C, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT,
                        _INT, _C]),
+    # (dtype, x, w, b, wt, z, n, d, D, scale, blocks, stream)
     "rf_map": ("rf_map_launch",
-               [_INT, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float, _C]),
+               [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float,
+                _INT, _C]),
     # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window, scale,
     # stream)
     "swa": ("swa_launch",
@@ -79,7 +81,8 @@ def nvcc() -> str:
 
 def _sources(name: str) -> list[Path]:
     return [CSRC / f"{name}.cu", CSRC / "fp32_tiles.cuh",
-            CSRC / "tc_mma.cuh", CSRC / "wgmma_tf32.cuh"]
+            CSRC / "tc_mma.cuh", CSRC / "wgmma_tf32.cuh",
+            CSRC / "tf32_mainloop.cuh"]
 
 
 def library_path(name: str) -> Path:

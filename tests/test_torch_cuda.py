@@ -150,3 +150,77 @@ def test_cuda_swa_routes_by_dtype(cuda, head_dim):
         assert got.transpose(1, 2).is_contiguous()
         want = swa_ref(qb.float(), kb.float(), vb.float(), window)
         assert swa_excess(got, want)[1] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_rf_map_tile_edges(cuda, dtype, tol):
+    """The tensor-core rf_map where its tiling bites: D = 77, 161 and
+    10,000 (partial 128-column tiles), n = 130 (a partial 128-row tile),
+    d = 33 (rows not 16-byte aligned: 4-byte copies or plain loads) and
+    d = 440 (a short last 32-deep stage), one launch each."""
+    from repro_torch.kernels.rf_map.ref import rf_map_ref
+    counters = launch_counters()
+    counters["rf_map"].reset()
+    g = torch.Generator().manual_seed(4)
+    cases = [(130, 440, 77), (130, 33, 161), (300, 440, 10_000),
+             (130, 33, 10_000)]
+    for n, d, dd in cases:
+        x = torch.randn(n, d, generator=g).to(cuda, dtype)
+        w, b = (torch.from_numpy(v).to(cuda) for v in rf_weights(d, dd, 2.0,
+                                                                  1))
+        torch.testing.assert_close(rf_map_apply(x, w, b),
+                                   rf_map_ref(x, w, b), rtol=tol, atol=tol)
+    assert counters["rf_map"].value == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_lru_scan_ring_edges(cuda, dtype, tol):
+    """The copy-ring lru_scan where its tiles bite: S = 1, S off the
+    32-step tile, W off the 32-channel group (and rows not 16-byte
+    aligned: element copies), B = 3; then the h0 carry across tiles."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    g = torch.Generator().manual_seed(5)
+    for b, s, w in [(1, 1, 64), (2, 77, 128), (1, 100, 100), (3, 64, 33),
+                    (3, 300, 4096)]:
+        a = torch.sigmoid(torch.randn(b, s, w, generator=g)).to(cuda, dtype)
+        x = (0.1 * torch.randn(b, s, w, generator=g)).to(cuda, dtype)
+        h0 = torch.randn(b, w, generator=g).to(cuda)
+        torch.testing.assert_close(lru_scan(a, x, h0),
+                                   lru_scan_ref(a, x, h0), rtol=tol,
+                                   atol=tol)
+    got = lru_scan(torch.full((2, 70, 40), 0.5, device=cuda, dtype=dtype),
+                   torch.zeros((2, 70, 40), device=cuda, dtype=dtype),
+                   torch.full((2, 40), 2.0 ** 20, device=cuda))
+    want = 2.0 ** (19 - torch.arange(70, dtype=torch.float64))
+    torch.testing.assert_close(got[1, :, 39].cpu().double(), want,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_lru_scan_is_the_sequential_fma_scan(cuda, dtype):
+    """The copy ring changes where a and b come from, not the arithmetic:
+    each state is one rounding of a_t h_{t-1} + b_t to fp32 (fmaf), as in
+    the one-thread-per-channel kernel before it, so the states are the same
+    bits. The emulation forms a h exactly in float64 and rounds the sum
+    once more; it could differ only where that sum lands on an fp32 tie,
+    which this data does not reach. Bulk copies (W 96) and element copies
+    (W 33)."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    g = torch.Generator().manual_seed(6)
+    for b, s, w in [(2, 300, 96), (1, 77, 33)]:
+        a = torch.sigmoid(torch.randn(b, s, w, generator=g)).to(dtype)
+        x = (0.1 * torch.randn(b, s, w, generator=g)).to(dtype)
+        h0 = torch.randn(b, w, generator=g)
+        want = torch.empty(b, s, w)
+        h = h0
+        for t in range(s):
+            h = (a[:, t].double() * h.double() + x[:, t].double()).float()
+            want[:, t] = h
+        got = lru_scan(a.to(cuda), x.to(cuda), h0.to(cuda)).cpu()
+        assert torch.equal(got, want)

@@ -250,6 +250,55 @@ def test_overwrite_keeps_the_layout_the_reference_derives(pair):
     assert seen[0] == seen[1] == ("rowblock", "replicated")
 
 
+def test_a_bare_tensor_reads_the_layout_the_reference_derives(pair):
+    """ROADMAP C3's two inputs, at one worker: a tensor computed from
+    ``get`` keeps the store's ``rowblock`` through ``put``, and a fresh
+    device array overwriting that store makes it ``replicated``."""
+    import jax.numpy as jnp
+    port, ref = pair
+    seen = []
+    for ac, fresh in ((port, torch.zeros), (ref, jnp.zeros)):
+        eng = ac.engine
+        a = ac.send_matrix(np.ones((4, 4), np.float32)).handle
+        derived = eng.layout(eng.put(eng.get(a) * 2))
+        eng.overwrite(a, fresh((4, 4), dtype=torch.float32 if ac is port
+                               else jnp.float32))
+        seen.append((derived, eng.layout(a)))
+        np.testing.assert_array_equal(np.asarray(eng.get(a)), 0.0)
+    assert seen[0] == seen[1] == ("rowblock", "replicated")
+
+
+def test_the_layout_tag_stays_outside_the_engine():
+    """``get`` hands out the store's tensor (no copy) tagged with its
+    layout; what routines and stores hold is a plain tensor; a result of
+    another shape, or of operands that disagree, carries no tag."""
+    from repro_torch.core.layout_tag import LayoutTensor, untag
+    eng = port_core.AlchemistEngine(device="cpu")
+    try:
+        a = eng.put(torch.ones(4, 4), layout="rowblock")
+        b = eng.put(torch.ones(4, 4), layout="block2d")
+        got = eng.get(a)
+        assert isinstance(got, LayoutTensor)
+        assert got.engine_layout == "rowblock"
+        assert got.layout == torch.strided
+        assert got.data_ptr() == eng._resolve(a)[0].data_ptr()
+        assert type(eng._resolve(a)[0]) is torch.Tensor
+        assert untag(got + 1)[1] == "rowblock"
+        assert untag(torch.exp(got))[1] == "rowblock"
+        for other in (got.T, got.sum(0), got[:2], got + eng.get(b)):
+            assert type(other) is torch.Tensor, other
+        h = eng.put(got * 3)
+        assert eng.layout(h) == "rowblock"
+        assert type(eng._resolve(h)[0]) is torch.Tensor
+        eng.overwrite(h, eng.get(b) - 1)
+        assert eng.layout(h) == "block2d"
+        assert type(eng._resolve(h)[0]) is torch.Tensor
+        values, _ = torch.max(got, dim=0)
+        assert untag(values)[1] == "replicated"
+    finally:
+        eng.shutdown()
+
+
 def test_transfer_records_cross_between_the_packages():
     """A reference record (as its server frames it) decodes as a port
     record, field for field, and the reverse."""

@@ -201,3 +201,22 @@ def test_interop_follows_jax_dtype_rules():
     back = interop.tensor_to_host(got["bf16"])
     assert back.dtype == np.float32
 
+
+
+def test_rf_map_column_tile_matches_the_kernel():
+    """The wrapper sizes W^T's scratch by the kernel's column tile."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rf_map.rf_map import COLUMN_TILE
+    src = (build.CSRC / "rf_map.cu").read_text()
+    assert 8 * int(re.search(r"constexpr int NT = (\d+);", src).group(1)) \
+        == COLUMN_TILE
+
+
+def test_rf_map_variants_still_apply_to_the_sources():
+    """Every variant of ``python -m repro_torch.launch.rf_map_variants`` is
+    a substitution the sources still hold."""
+    from repro_torch.launch.rf_map_variants import VARIANTS, variant_sources
+    for name in VARIANTS:
+        changed = variant_sources(name)
+        assert all(changed.values()) or name == "as_is"

@@ -1,4 +1,4 @@
-"""The arithmetic plans of the port's two tensor-core kernels, emulated in
+"""The arithmetic plans of the port's tensor-core kernels, emulated in
 plain PyTorch on the CPU and held to the limits the card is held to.
 
 * normal_matvec (csrc/normal_matvec.cu) multiplies in 3xTF32: each fp32
@@ -6,6 +6,10 @@ plain PyTorch on the CPU and held to the limits the card is held to.
   with its 13 low mantissa bits cleared, and a b ~ a_hi b_hi + a_hi b_lo
   + a_lo b_hi. It must stay within the 3e-5 rule against the float64
   product, where one-pass TF32 must not.
+* rf_map (csrc/rf_map.cu) forms X W the same way (two products for a bf16
+  X), then adds b, takes cos and scales by sqrt(2/D). It must stay within
+  the JAX tests' 1e-5 of the float64 map at their four shapes, where
+  one-pass TF32 must not.
 * swa's bf16 route (csrc/swa.cu) splits the probabilities into two bf16
   parts, hi = bf16(p) and lo = bf16(p - hi), for the product with v,
   keeps the row sum in fp32, and rescales a running fp32 accumulator
@@ -17,11 +21,14 @@ plain PyTorch on the CPU and held to the limits the card is held to.
 No card, no kernel: these show that the plans, not the kernels, meet the
 limits; tests/test_torch_cuda.py and chip_smoke.py hold the kernels to
 the same limits on the card."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import swa_excess
+from repro_torch.kernels.rf_map.ref import rf_weights
 from repro_torch.kernels.swa.ref import swa_ref
 
 NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
@@ -93,6 +100,53 @@ def test_normal_matvec_3xtf32_meets_the_rule_at_a_cg_slice():
     del xd
     assert within_rule(nm_3xtf32(x, w, False), want)
     assert not within_rule(nm_tf32(x, w), want)
+
+
+RF_TOL = 1e-5          # chip_smoke.TOL["rf_map"]["float32"], absolute
+RF_SHAPES = [(256, 128, 256), (300, 70, 200), (512, 440, 1024),
+             (100, 33, 77)]   # tests/test_kernels.py's rf_map shapes
+
+
+def _rf_case(n, d, dd, dtype):
+    """X standard normal (rounded to ``dtype``), W and b as the JAX tests
+    draw them (bandwidth 2), and the float64 map of those values."""
+    rng = np.random.default_rng(n + d + dd)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    x = x.to(dtype).float()
+    w, b = (torch.from_numpy(v) for v in rf_weights(d, dd, 2.0, 1))
+    want = torch.cos(x.double() @ w.double() + b.double()) * \
+        math.sqrt(2.0 / dd)
+    return x, w, b, want
+
+
+def rf_plan(x, w, b, exact_x: bool, split_products: bool = True):
+    """rf_map as the kernel forms it: X W in 3xTF32 (or one TF32 product),
+    then + b, cos and the scale of the true D, in fp32."""
+    t = mm_3xtf32(x, w, exact_x) if split_products else tf32(x) @ tf32(w)
+    return torch.cos(t + b) * math.sqrt(2.0 / w.shape[1])
+
+
+def within_rf_rule(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """chip_smoke.close's rule for rf_map: |got - want| <= tol (1 +
+    |want|)."""
+    err = (got.double() - want).abs()
+    return bool((err <= RF_TOL * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("n,d,dd", RF_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rf_map_3xtf32_plan_meets_the_fp32_rule(n, d, dd, dtype):
+    x, w, b, want = _rf_case(n, d, dd, dtype)
+    assert within_rf_rule(rf_plan(x, w, b, dtype == torch.bfloat16), want)
+
+
+@pytest.mark.parametrize("n,d,dd", RF_SHAPES)
+def test_rf_map_one_pass_tf32_misses_the_rule(n, d, dd):
+    """The reason for the split: one TF32 product misses 1e-5 at every JAX
+    shape (the arguments of cos reach tens, and TF32 keeps 11 bits)."""
+    x, w, b, want = _rf_case(n, d, dd, torch.float32)
+    assert not within_rf_rule(rf_plan(x, w, b, False, split_products=False),
+                              want)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
