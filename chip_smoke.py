@@ -14,7 +14,13 @@ paper's offload loop through the client entry point
 
 and streams the factors back. Rows are cut from the paper's 2,251,569
 (TIMIT) and 6,177,583 (ocean) to 1,048,576 each so one 80 GB card holds
-the work (Z = n x D fp32 is 41.9 GB). Then it serves RecurrentGemma-9B
+the work (Z = n x D fp32 is 41.9 GB). Then the same loop runs through its
+deployed entry point, a client ``AlchemistContext(address=...)`` talking
+TCP frames to the port's server (``repro_torch.core.server``) on the
+card: the same speech data and CG, whose W must equal the in-memory W bit
+for bit; the ocean field at 262,144 rows with both SVDs; and the server
+started as its own process (``python -m repro_torch.core.server``)
+answering a small CG. Then it serves RecurrentGemma-9B
 at its published widths, all 38 layers, random fp32 parameters from a
 seed, through ``repro_torch.serve.ServingEngine``: 8 requests of
 3,584-4,096-token prompts, 32 new tokens each, in two waves of 4, every
@@ -32,8 +38,13 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import queue
+import signal
+import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -56,6 +67,12 @@ TIMIT_D, RF_DIM, TIMIT_C = 440, 10_000, 147
 OCEAN_D, SVD_K = 8_096, 20
 CG_ROWS = 1_048_576            # of 2,251,569: Z must fit the card
 SVD_ROWS = 1_048_576           # of 6,177,583
+# the ocean field sent over the socket: a quarter of SVD_ROWS bounds the
+# host generator's time
+SVD_SOCKET_ROWS = 262_144
+SVD_CHUNK_ROWS = 128
+# how long the server process may take to print its address
+SERVER_START_S = 180
 CG_ITERS = 20
 REF_BLOCK_ROWS = 65_536        # row blocks of the full-size references
 DEVICE = "cuda"
@@ -505,8 +522,9 @@ def make_speech_like(n, d=440, classes=32, seed=0):
     return x.astype(np.float32), y, labels
 
 
-def small_cg_check(ac) -> float:
-    """A CG solve on the card against numpy's direct solve."""
+def small_cg_check(ac) -> tuple:
+    """A CG solve on the card against numpy's direct solve: (max abs
+    error, W)."""
     rng = np.random.RandomState(0)
     x = rng.randn(256, 24).astype(np.float32)
     y = rng.randn(256, 2).astype(np.float32)
@@ -517,7 +535,7 @@ def small_cg_check(ac) -> float:
     err = float(np.abs(w - want).max())
     if not err <= 1e-4:
         raise AssertionError(f"small CG differs from np.linalg.solve: {err}")
-    return err
+    return err, w
 
 
 def true_residual(x, y, w_cg, lam, bandwidth, seed, rows=65_536) -> float:
@@ -582,10 +600,12 @@ def cg_rounding_spread(x, y, lam, bandwidth) -> dict:
     return out
 
 
-def phase_cg(ac, counters) -> dict:
+def phase_cg(ac, counters) -> tuple:
+    """Returns (the launch counts of the solve, what the socket phase
+    repeats: x, y, W and the upload rate)."""
     from repro_torch.core.libraries import skylark
     ac.register_library("skylark", skylark)
-    small_err = small_cg_check(ac)
+    small_err, _ = small_cg_check(ac)
 
     t0 = time.perf_counter()
     x, y, _ = make_speech_like(CG_ROWS, d=TIMIT_D, classes=TIMIT_C)
@@ -649,7 +669,9 @@ def phase_cg(ac, counters) -> dict:
            "residual_history": stats["residual_history"],
            "launches": launches}
     emit(rec)
-    return launches
+    return launches, {"x": x, "y": y, "w": w,
+                      "upload_gb_per_s": (x.nbytes + y.nbytes) / upload_s
+                      / 1e9}
 
 
 # ---------------------------------------------------------------------------
@@ -766,7 +788,244 @@ def phase_svd(ac, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serve RecurrentGemma-9B
+# phase 6: the offload loop over TCP, through the port's server
+# ---------------------------------------------------------------------------
+def wire_bytes(bridge, server, endpoint: str) -> dict:
+    """Frames and bytes of ``endpoint`` as the client put them on the
+    socket and as the server took them off."""
+    c, s = bridge.wire_log.stat(endpoint), server.wire_log.stat(endpoint)
+    return {"client_frames_out": c.frames_out, "client_bytes_out":
+            c.bytes_out, "client_frames_in": c.frames_in,
+            "client_bytes_in": c.bytes_in, "server_frames_in": s.frames_in,
+            "server_bytes_in": s.bytes_in, "server_frames_out":
+            s.frames_out, "server_bytes_out": s.bytes_out}
+
+
+def phase_cg_socket(cg, counters) -> tuple:
+    """phase_cg's x and y sent through a client on TCP to an in-process
+    AlchemistServer on the card, the same CG solved there and W fetched:
+    W must equal phase_cg's bit for bit. Returns (the launch counts of
+    the solve, the small CG's W through this server)."""
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import skylark
+    from repro_torch.core.server import AlchemistServer
+    x, y = cg["x"], cg["y"]
+    t_phase = time.perf_counter()
+    srv = AlchemistServer(device=DEVICE).start()    # owns its engine
+    try:
+        ac = AlchemistContext(address=srv.address)
+        ac.register_library("skylark", skylark)
+        _, small_w = small_cg_check(ac)
+        t0 = time.perf_counter()
+        al_x = ac.send_matrix(x, dedup=False)
+        al_y = ac.send_matrix(y, dedup=False)
+        upload_s = time.perf_counter() - t0
+        recs = [al_x.last_transfer, al_y.last_transfer]
+        sky = ac.library("skylark")
+
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        W = sky.cg_solve(X=al_x, Y=al_y, lam=1e-5,
+                         rf_dim=RF_DIM, bandwidth=math.sqrt(TIMIT_D),
+                         max_iters=CG_ITERS, tol=0.0)
+        stats = W.stats()
+        solve_s = time.perf_counter() - t0
+        launches = {k: c.value for k, c in counters.items()}
+        fetched = ac.engine.wire_log.stat("fetch").bytes_in
+        t0 = time.perf_counter()
+        w = W.to_numpy()
+        fetch_s = time.perf_counter() - t0
+        fetched = ac.engine.wire_log.stat("fetch").bytes_in - fetched
+        # the same fetch again: what of the first is a one-time cost
+        t0 = time.perf_counter()
+        W.to_numpy()
+        fetch_again_s = time.perf_counter() - t0
+        ac.stop()
+    finally:
+        srv.stop()
+    # read once the server is stopped: it logs a frame after sending it
+    wire = wire_bytes(ac.engine, srv, "upload")
+
+    same_bits = w.dtype == cg["w"].dtype and w.shape == cg["w"].shape \
+        and np.array_equal(w.view(np.uint32), cg["w"].view(np.uint32))
+    payload = x.nbytes + y.nbytes
+    rec = {"phase": "cg_socket", "rows": CG_ROWS, "d": TIMIT_D,
+           "rf_dim": RF_DIM, "classes": TIMIT_C,
+           "iterations": stats["iterations"],
+           "upload_s": upload_s, "upload_gb_per_s": payload / upload_s / 1e9,
+           "inmemory_upload_gb_per_s": cg["upload_gb_per_s"],
+           "payload_bytes": payload,
+           "record_wire_bytes": sum(r.wire_nbytes for r in recs),
+           "chunks": sum(r.num_chunks for r in recs),
+           "upload_wire": wire, "solve_s": solve_s,
+           "engine_solve_s": stats["_elapsed"], "fetch_w_s": fetch_s,
+           "fetch_w_again_s": fetch_again_s, "fetch_w_bytes": w.nbytes,
+           "fetch_w_wire_bytes": fetched,
+           "w_equals_inmemory_bits": bool(same_bits),
+           "w_max_abs_diff": float(np.abs(w - cg["w"]).max()),
+           "relative_residual": stats["relative_residual"],
+           "seconds": time.perf_counter() - t_phase, "launches": launches}
+    emit(rec)
+    if not same_bits:
+        raise AssertionError("W over the socket differs from the in-memory "
+                             "W: the upload path changed the bytes")
+    if stats["iterations"] != CG_ITERS:
+        raise AssertionError(f"CG ran {stats['iterations']} iterations")
+    if launches["rf_map"] < 1 or launches["normal_matvec"] < CG_ITERS:
+        raise AssertionError(f"the socket CG did not run through the "
+                             f"kernels: {launches}")
+    return launches, small_w
+
+
+def phase_svd_socket(counters) -> dict:
+    """The ocean field at SVD_SOCKET_ROWS sent in SVD_CHUNK_ROWS-row
+    chunks over TCP to an in-process server on the card, both SVDs there,
+    and the factors fetched."""
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import elemental
+    from repro_torch.core.server import AlchemistServer
+    t_phase = time.perf_counter()
+    srv = AlchemistServer(device=DEVICE).start()    # owns its engine
+    try:
+        ac = AlchemistContext(address=srv.address)
+        ac.register_library("elemental", elemental)
+        el = ac.library("elemental")
+        field, generation = ocean_like(SVD_SOCKET_ROWS, OCEAN_D)
+        t0 = time.perf_counter()
+        al_a = ac.send_matrix(field, dedup=False, chunk_rows=SVD_CHUNK_ROWS)
+        upload_s = time.perf_counter() - t0
+        up = al_a.last_transfer
+
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        U1, S1, V1 = el.truncated_svd(A=al_a, k=SVD_K)
+        s1 = S1.to_numpy().ravel()
+        trunc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        U2, S2, V2 = el.gram_svd(A=al_a, k=SVD_K)
+        s2 = S2.to_numpy().ravel()
+        gram_s = time.perf_counter() - t0
+        launches = {k: c.value for k, c in counters.items()}
+        t0 = time.perf_counter()
+        factors = {"U_trunc": U1.to_numpy(), "V_trunc": V1.to_numpy(),
+                   "U_gram": U2.to_numpy(), "V_gram": V2.to_numpy()}
+        fetch_s = time.perf_counter() - t0
+        trunc_engine_s = S1.stats()["_elapsed"]
+        gram_engine_s = S2.stats()["_elapsed"]
+        ac.stop()
+    finally:
+        srv.stop()
+    wire = wire_bytes(ac.engine, srv, "upload")
+    fetch_wire = wire_bytes(ac.engine, srv, "fetch")
+
+    rec = {"phase": "svd_socket", "rows": SVD_SOCKET_ROWS, "d": OCEAN_D,
+           "k": SVD_K, "chunk_rows": SVD_CHUNK_ROWS, "upload_s": upload_s,
+           "upload_generate_s": generation["seconds"],
+           "upload_bridge_s": upload_s - generation["seconds"],
+           "payload_bytes": up.nbytes, "record_wire_bytes": up.wire_nbytes,
+           "chunks": up.num_chunks,
+           "payload_bytes_per_chunk": up.nbytes / up.num_chunks,
+           "wire_bytes_per_chunk": up.wire_nbytes / up.num_chunks,
+           "upload_wire": wire, "truncated_svd_s": trunc_s,
+           "truncated_svd_engine_s": trunc_engine_s, "gram_svd_s": gram_s,
+           "gram_svd_engine_s": gram_engine_s, "fetch_factors_s": fetch_s,
+           "fetch_factor_bytes": sum(f.nbytes for f in factors.values()),
+           "fetch_wire": fetch_wire,
+           "sigma_truncated": s1.tolist(), "sigma_gram": s2.tolist(),
+           "sigma_max_rel_diff": float(np.max(np.abs(s1 - s2) / s2)),
+           "seconds": time.perf_counter() - t_phase, "launches": launches}
+    emit(rec)
+    if launches["gram"] < 1:
+        raise AssertionError(f"gram_svd over the socket did not run "
+                             f"through the gram kernel: {launches}")
+    np.testing.assert_allclose(s1, s2, rtol=1e-3)
+    for name, f in factors.items():
+        rows = SVD_SOCKET_ROWS if name.startswith("U") else OCEAN_D
+        if f.shape != (rows, SVD_K) or not np.isfinite(f).all():
+            raise AssertionError(f"{name} {f.shape} finite="
+                                 f"{bool(np.isfinite(f).all())}")
+    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_server_cli(want_small_w) -> dict:
+    """``python -m repro_torch.core.server --device cuda`` as its own
+    process, as the README deploys it: wait for its startup line, drive
+    small_cg_check's problem and its fetch through it, compare W with the
+    in-process server's, then interrupt it and check that it exits 0."""
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import skylark
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + [p for p in
+                               os.environ.get("PYTHONPATH", "").split(
+                                   os.pathsep) if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.core.server", "--device",
+         DEVICE, "--port", str(_free_port())], env=env, cwd=str(REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    seen: list = []
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        deadline = time.monotonic() + SERVER_START_S
+        address = None
+        while address is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline -
+                                             time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"the server printed no address in {SERVER_START_S} s: "
+                    f"{seen}") from None
+            if line is None:
+                raise AssertionError(f"the server exited with "
+                                     f"{proc.wait()} before serving: {seen}")
+            seen.append(line.rstrip())
+            if "serving on" in line:
+                address = line.split("serving on ")[1].split()[0]
+        start_s = time.perf_counter() - t_phase
+        with AlchemistContext(address=address) as ac:
+            ac.register_library("skylark", skylark)
+            err, w = small_cg_check(ac)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    same_bits = np.array_equal(w.view(np.uint32),
+                               want_small_w.view(np.uint32))
+    diff = float(np.abs(w - want_small_w).max())
+    rec = {"phase": "server_cli", "address": address, "startup_line":
+           seen[-1], "start_s": start_s, "small_cg_max_err": err,
+           "w_equals_in_process_bits": bool(same_bits),
+           "w_max_abs_diff_in_process": diff, "exit_code": rc,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if rc != 0:
+        raise AssertionError(f"the server process exited with {rc}")
+    if not diff <= 1e-6 * float(np.abs(want_small_w).max()):
+        raise AssertionError(f"the server process's W differs from the "
+                             f"in-process server's by {diff}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve RecurrentGemma-9B
 # ---------------------------------------------------------------------------
 def phase_serve(counters) -> tuple:
     """Build RecurrentGemma-9B at its published widths on the card, serve
@@ -882,7 +1141,7 @@ def main() -> int:
     counters = launch_counters()
 
     ac = AlchemistContext(device=DEVICE)
-    launches = phase_cg(ac, counters)
+    launches, cg = phase_cg(ac, counters)
     ac.stop()
     torch.cuda.empty_cache()
     ac2 = AlchemistContext(engine=ac.engine)
@@ -894,6 +1153,19 @@ def main() -> int:
     del ac, ac2
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the same loop over TCP, through the port's server
+    cg_launches, small_w = phase_cg_socket(cg, counters)
+    del cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    svd_socket_launches = phase_svd_socket(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for got in (cg_launches, svd_socket_launches):
+        for k, v in got.items():
+            launches[k] += v
+    phase_server_cli(small_w)
 
     model, lm_launches = phase_serve(counters)
     phase_consistency(model)

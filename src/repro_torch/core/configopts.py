@@ -4,7 +4,7 @@ The session-configuration surface exists in four places: the engine's
 endpoint validation (``engine.configure``), the protocol dataclass
 docstring (``protocol.Configure``), the typed client signature
 (``context.AlchemistContext.configure``), and — for the engine-wide
-options — the server CLI (``python -m repro.core.server``). The wire's
+options — the server CLI (``python -m repro_torch.core.server``). The wire's
 FRAME_SPECS registry ended the same four-way drift for wire frames;
 this module does it for configuration: each option is declared once,
 and the CFG001 analysis rule checks every surface against this table.

@@ -79,8 +79,8 @@ class AlchemistContext:
     chunks to ~``transfer.DEFAULT_CHUNK_BYTES``).
 
     ``address="host:port"`` attaches to a *remote* engine served by
-    ``python -m repro.core.server`` instead of an in-process one: the
-    context then holds a :class:`~repro.core.wire.SocketBridge` and the
+    ``python -m repro_torch.core.server`` instead of an in-process one: the
+    context then holds a :class:`~repro_torch.core.wire.SocketBridge` and the
     identical protocol bytes cross real TCP frames — nothing else about
     the façade changes.
 

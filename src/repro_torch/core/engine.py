@@ -172,6 +172,10 @@ class _Store:
     # the store's authoritative distributed layout (handles carry a
     # snapshot; overwrite can change it): one of handles.LAYOUTS
     layout: str = REPLICATED
+    # the layout the tensor itself carries, what ``get`` tags it with:
+    # ``layout`` unless ``put`` overrode the label, as a JAX store's array
+    # keeps its own sharding whatever label ``put`` gave the store
+    sharding: str = REPLICATED
 
 
 @dataclasses.dataclass
@@ -1099,7 +1103,9 @@ class AlchemistEngine:
         tensor :meth:`get` handed out or computed from one
         (:mod:`~repro_torch.core.layout_tag`), and tags any other tensor
         or host array ``replicated``, as the JAX engine tags an array that
-        carries no distributed sharding."""
+        carries no distributed sharding. An override labels the store
+        only: :meth:`get` still hands its tensor out with the tag it came
+        in with, as a JAX store's array keeps its own sharding."""
         array, tagged = layout_tag.untag(array)
         array = self._on_device(array)
         with self._state_lock:
@@ -1117,7 +1123,7 @@ class AlchemistEngine:
                 array=array, nbytes=nbytes, shape=tuple(array.shape),
                 dtype=dtype_name(array.dtype), fingerprint=fp,
                 last_use=next(self._clock),
-                layout=lay)
+                layout=lay, sharding=tagged)
             self._by_fingerprint.setdefault(fp, store_id)
             if self._stm.enabled:
                 self._stm.mint("store", (self._stm_dom, store_id),
@@ -1136,17 +1142,20 @@ class AlchemistEngine:
         namespace plus the system one (protocol-level isolation).
 
         The tensor is the store's own (a view, no copy), tagged with the
-        store's layout (:class:`~repro_torch.core.layout_tag.LayoutTensor`):
-        what is computed from it keeps the tag, and :meth:`put` and
+        layout it carries (:class:`~repro_torch.core.layout_tag.LayoutTensor`;
+        the store's layout unless :meth:`put` overrode that label): what
+        is computed from it follows the tag, and :meth:`put` and
         :meth:`overwrite` read it back, as the JAX engine reads the
         sharding such an array keeps (``layout_of``)."""
-        return layout_tag.tag(*self._resolve(handle, session))
+        return layout_tag.tag(*self._resolve(handle, session, carried=True))
 
-    def _resolve(self, handle: MatrixHandle, session: Optional[int] = None
-                 ) -> tuple:
+    def _resolve(self, handle: MatrixHandle, session: Optional[int] = None,
+                 carried: bool = False) -> tuple:
         """(the store's plain tensor, its layout) for a handle, reloading
-        a spilled store: what :meth:`get` tags, and what routines (through
-        :class:`SessionView`) and argument materialization read."""
+        a spilled store: what routines (through :class:`SessionView`),
+        argument materialization and the server's fetch read. With
+        ``carried`` the layout is the one the tensor carries, which
+        :meth:`get` tags."""
         with self._state_lock:
             entry = self._visible_entry(handle, session)
             store = self._stores[entry.store]
@@ -1158,7 +1167,7 @@ class AlchemistEngine:
                     self._stm.note("store", (self._stm_dom, entry.store),
                                    "LIVE", site="get")
                 self._enforce_budget(keep=entry.store)
-            return store.array, store.layout
+            return store.array, store.sharding if carried else store.layout
 
     def overwrite(self, handle: MatrixHandle, array,
                   session: Optional[int] = None) -> None:
@@ -1205,7 +1214,7 @@ class AlchemistEngine:
                     array=array, nbytes=store.nbytes,
                     shape=tuple(array.shape), dtype=dtype_name(array.dtype),
                     fingerprint=fp, last_use=next(self._clock),
-                    layout=lay)
+                    layout=lay, sharding=lay)
                 if self._stm.enabled:
                     self._stm.mint("store", (self._stm_dom, store_id),
                                    site="overwrite")
@@ -1222,7 +1231,7 @@ class AlchemistEngine:
                 if was_spilled and self._stm.enabled:
                     self._stm.note("store", (self._stm_dom, entry.store),
                                    "LIVE", site="overwrite")
-                store.layout = lay
+                store.layout = store.sharding = lay
                 store.last_use = next(self._clock)
                 self._enforce_budget(keep=entry.store)
             self._by_fingerprint.setdefault(fp, entry.store)
@@ -2010,8 +2019,9 @@ class AlchemistEngine:
         is what guarantees no routine output ever drops the engine layout
         — host-side reference results and transposed views included."""
         value = self._on_device(value).contiguous()
-        return self.put(value, name=name, session=session,
-                        layout=self.dist_layout(tuple(value.shape)))
+        return self.put(
+            layout_tag.tag(value, self.dist_layout(tuple(value.shape))),
+            name=name, session=session)
 
     def _fusible_predicate(self, backend: backend_base.ExecutionBackend):
         """Claim filter for :meth:`scheduler.claim_chain`: a queued task

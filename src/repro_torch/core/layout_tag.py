@@ -1,23 +1,22 @@
 """The layout tag that follows a tensor out of the engine and back in.
 
 The JAX engine reads a store's layout from its array's sharding
-(``layout_of``), and an array computed from an engine array keeps that
-sharding. A torch tensor carries no sharding, so the port's public
-``AlchemistEngine.get`` hands out a :class:`LayoutTensor`: the store's
-tensor itself (a view, no copy) tagged with the store's layout. An op
-whose result has the shape and strides of its tagged operands, and whose
-tagged operands agree, tags the result the same (an elementwise op, a
-copy, an in-place update); any other result is a plain tensor. ``put``
-and ``overwrite`` read the tag with :func:`untag`, which also unwraps the
-tensor, so no routine, backend or kernel ever sees the subclass. A plain tensor or a host array reads ``replicated``, as a fresh
-JAX array carries no distributed sharding.
-
-Results the tag does not follow yet (ROADMAP C3'), where the JAX engine
-derives a layout from the sharding XLA propagates to the result: a
-transpose, a slice or a reshape of a row-block array (``rowblock`` there,
-``replicated`` here), and any other op whose result's shape or strides
-differ from its tagged operands'. A square product keeps its operands'
-tag.
+(``layout_of``), and an array computed from an engine array carries the
+sharding XLA propagates to it. A torch tensor carries no sharding, so the
+port's public ``AlchemistEngine.get`` hands out a :class:`LayoutTensor`:
+the store's tensor itself (a view, no copy) tagged with the layout it
+carries. A result takes the tag of the op's first argument (or of the
+first tensor in a first-argument list, as ``torch.cat`` takes) when that
+argument is tagged and the result has its rank; any other result is a
+plain tensor. At one worker that is the layout the JAX engine derives in
+every case tried against it: a transpose, a slice, a same-rank reshape, a
+product, ``cat`` and elementwise ops of a row-block array stay
+``rowblock``; a reduction, a flatten, a rank change and an op whose first
+operand is untagged read ``replicated``. ``put`` and ``overwrite`` read
+the tag with :func:`untag`, which also unwraps the tensor, so no routine,
+backend or kernel ever sees the subclass. A plain tensor or a host array
+reads ``replicated``, as a fresh JAX array carries no distributed
+sharding.
 """
 from __future__ import annotations
 
@@ -36,9 +35,7 @@ class LayoutTensor(torch.Tensor):
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         out = super().__torch_function__(func, types, args, kwargs or {})
         with torch._C.DisableTorchFunctionSubclass():
-            tagged = [t for t in _leaves((args, kwargs))
-                      if isinstance(t, LayoutTensor)]
-            return _retag(out, tagged)
+            return _retag(out, _first_tensor(args))
 
 
 def tag(array: torch.Tensor, layout: str) -> LayoutTensor:
@@ -56,29 +53,24 @@ def untag(array) -> tuple:
     return array, REPLICATED
 
 
-def _leaves(tree):
-    if isinstance(tree, (list, tuple)):
-        for item in tree:
-            yield from _leaves(item)
-    elif isinstance(tree, dict):
-        for item in tree.values():
-            yield from _leaves(item)
-    else:
-        yield tree
+def _first_tensor(args):
+    """The op's first argument, or the first tensor of a first-argument
+    list; None when that is not a tensor."""
+    first = args[0] if args else None
+    if isinstance(first, (list, tuple)):
+        first = next((t for t in first if isinstance(t, torch.Tensor)), None)
+    return first if isinstance(first, torch.Tensor) else None
 
 
-def _retag(out, tagged: list):
-    """The tensors of ``out`` tagged where the tagged operands of their
-    shape and strides agree on one layout, plain otherwise (strides too,
-    so a square transpose loses the tag)."""
+def _retag(out, first):
+    """The tensors of ``out`` tagged with ``first``'s layout where
+    ``first`` is tagged and they have its rank, plain otherwise."""
     if isinstance(out, (list, tuple)):
         # a list, a tuple or one of torch's return types (struct sequences)
-        return type(out)([_retag(o, tagged) for o in out])
+        return type(out)([_retag(o, first) for o in out])
     if not isinstance(out, LayoutTensor):
         return out
-    layouts = {t.engine_layout for t in tagged
-               if t.shape == out.shape and t.stride() == out.stride()}
-    if len(layouts) != 1:
+    if not isinstance(first, LayoutTensor) or out.dim() != first.dim():
         return out.as_subclass(torch.Tensor)
-    out.engine_layout = layouts.pop()
+    out.engine_layout = first.engine_layout
     return out

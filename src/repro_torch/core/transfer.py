@@ -64,7 +64,7 @@ from repro_torch.core.engine import SYSTEM_SESSION, AlchemistEngine
 from repro_torch.core.handles import MatrixHandle
 from repro_torch.frontend.rowmatrix import RowMatrix
 from repro_torch.interop import canonical_dtype, host_to_tensor, \
-    tensor_to_host
+    numpy_dtype, tensor_to_numpy
 
 # Default chunk size target, in bytes: roughly the socket-buffer ballpark
 # the Cray deployment report tunes around. Row counts are derived from it
@@ -96,7 +96,8 @@ def _row_plan(num_rows: int, chunk_rows: int,
 class _Stager:
     """Host-to-device chunk copies through two pinned buffers, so one
     chunk's copy into pinned memory overlaps the previous chunk's DMA to
-    the device. On a CPU engine chunks copy straight in."""
+    the device (a chunk longer than a buffer crosses in buffer-sized
+    pieces). On a CPU engine chunks copy straight in."""
 
     def __init__(self, dst: torch.Tensor, chunk_rows: int):
         self.dst = dst
@@ -114,21 +115,33 @@ class _Stager:
         if not self.cuda:
             self.dst[lo:hi].copy_(src)
             return
-        buf, ev = self.bufs[self.turn], self.events[self.turn]
-        if ev is not None:
-            ev.synchronize()            # its previous DMA has finished
-        buf[: hi - lo].copy_(src)
-        self.dst[lo:hi].copy_(buf[: hi - lo], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self.events[self.turn] = ev
-        self.turn ^= 1
+        step = self.bufs[0].shape[0]
+        for at in range(0, hi - lo, step):
+            rows = min(step, hi - lo - at)
+            buf, ev = self.bufs[self.turn], self.events[self.turn]
+            if ev is not None:
+                ev.synchronize()        # its previous DMA has finished
+            buf[:rows].copy_(src[at:at + rows])
+            self.dst[lo + at:lo + at + rows].copy_(buf[:rows],
+                                                   non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self.events[self.turn] = ev
+            self.turn ^= 1
 
     def finish(self) -> None:
         """Block until every chunk has landed on the device."""
         for ev in self.events:
             if ev is not None:
                 ev.synchronize()
+
+
+def placed(engine: AlchemistEngine, arr: torch.Tensor) -> torch.Tensor:
+    """``arr`` placed in the engine's distributed layout, as the JAX
+    transfer layer's ``device_put`` to ``dist_sharding`` places an upload:
+    ``put`` reads the store's layout from it, and ``get`` hands the tensor
+    out tagged so (:mod:`~repro_torch.core.layout_tag`)."""
+    return layout_tag.tag(arr, engine.dist_layout(tuple(arr.shape)))
 
 
 def _aggregate_record(log, nbytes: int, direction: str, session: int,
@@ -179,7 +192,7 @@ def to_engine(engine: AlchemistEngine, matrix, name: Optional[str] = None,
     direct path: one move to the engine device, one record, no host
     round trip (and no content hashing).
 
-    ``engine`` may also be a :class:`~repro.core.wire.SocketBridge`: the
+    ``engine`` may also be a :class:`~repro_torch.core.wire.SocketBridge`: the
     same chunk plan then crosses as real frames to a remote engine
     server, and the returned record additionally carries the measured
     ``wire_nbytes``.
@@ -192,8 +205,8 @@ def to_engine(engine: AlchemistEngine, matrix, name: Optional[str] = None,
         arr = matrix.to(engine.device)
         rec = engine.transfer_log.record(arr.numel() * arr.element_size(),
                                          "to_engine", session=session)
-        return engine.put(arr, name=name, session=session,
-                          layout=engine.dist_layout(tuple(arr.shape))), rec
+        return engine.put(placed(engine, arr), name=name,
+                          session=session), rec
 
     is_rm = isinstance(matrix, RowMatrix)
     if is_rm:
@@ -211,8 +224,8 @@ def to_engine(engine: AlchemistEngine, matrix, name: Optional[str] = None,
                              engine.device)
         rec = engine.transfer_log.record(arr.numel() * arr.element_size(),
                                          "to_engine", session=session)
-        return engine.put(arr, name=name, session=session,
-                          layout=engine.dist_layout(tuple(arr.shape))), rec
+        return engine.put(placed(engine, arr), name=name,
+                          session=session), rec
 
     if chunk_rows is None:
         chunk_rows = chunk_rows_for(shape, itemsize)
@@ -283,9 +296,8 @@ def to_engine(engine: AlchemistEngine, matrix, name: Optional[str] = None,
         fingerprint = inline_hasher.fingerprint()
     rec = _aggregate_record(
         engine.transfer_log, total, "to_engine", session, sizes)
-    return engine.put(arr, name=name, session=session,
-                      fingerprint=fingerprint,
-                      layout=engine.dist_layout(tuple(shape))), rec
+    return engine.put(placed(engine, arr), name=name, session=session,
+                      fingerprint=fingerprint), rec
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -298,7 +310,7 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 def _to_engine_bridge(bridge, matrix, name: Optional[str],
                       session: int, chunk_rows: Optional[int],
                       dedup: bool) -> tuple[MatrixHandle, TransferRecord]:
-    """``to_engine`` over a :class:`~repro.core.wire.SocketBridge`: the
+    """``to_engine`` over a :class:`~repro_torch.core.wire.SocketBridge`: the
     same chunk plan and the same dedup rules, carried by real frames.
 
     Differences from the in-process path are exactly the ones a socket
@@ -311,7 +323,7 @@ def _to_engine_bridge(bridge, matrix, name: Optional[str],
     same chunk-boundary-invariant hash, so uploads dedup across bridges.
     """
     if isinstance(matrix, torch.Tensor):
-        src = tensor_to_host(matrix)
+        src = tensor_to_numpy(matrix)
         return bridge.upload(src.shape, src.dtype, [src],
                              session=session, name=name, single=True)
 
@@ -390,16 +402,16 @@ def to_client(engine: AlchemistEngine, handle: MatrixHandle,
     storage, peak host allocation is one chunk — never a whole-matrix
     staging buffer.
 
-    Over a :class:`~repro.core.wire.SocketBridge` the same chunks arrive
+    Over a :class:`~repro_torch.core.wire.SocketBridge` the same chunks arrive
     as FETCH frames and land in the same per-partition blocks.
     """
     if not isinstance(engine, AlchemistEngine):
         return _to_client_bridge(engine, handle, num_partitions,
                                  session=session, chunk_rows=chunk_rows)
-    arr, _ = layout_tag.untag(engine.get(handle, session=session))
+    arr, _ = engine._resolve(handle, session=session)
     sess = SYSTEM_SESSION if session is None else session
     if arr.ndim < 1 or arr.shape[0] == 0:
-        host = tensor_to_host(arr)
+        host = tensor_to_numpy(arr)
         rec = engine.transfer_log.record(host.nbytes, "to_client",
                                          session=sess)
         return RowMatrix.from_array(host, num_partitions), rec
@@ -422,7 +434,7 @@ def to_client(engine: AlchemistEngine, handle: MatrixHandle,
     sizes: list[int] = []
     total = 0
     for idx, (lo, hi) in enumerate(plan):
-        block = tensor_to_host(arr[lo:hi])      # one chunk crosses
+        block = tensor_to_numpy(arr[lo:hi])     # one chunk crosses
         p = bisect.bisect_right(pstarts, lo) - 1
         if blocks[p] is None:
             blocks[p] = np.empty((psizes[p],) + tuple(arr.shape[1:]),
@@ -451,6 +463,8 @@ def _to_client_bridge(bridge, handle: MatrixHandle, num_partitions: int,
 
     def on_meta(meta):
         state["meta"] = meta
+        # a bfloat16 stream needs ml_dtypes before its chunks decode
+        state["dtype"] = numpy_dtype(meta["dtype"])
         if meta["whole"]:
             return
         psizes = meta["psizes"]
@@ -460,7 +474,6 @@ def _to_client_bridge(bridge, handle: MatrixHandle, num_partitions: int,
         state["psizes"] = psizes
         state["pstarts"] = pstarts
         state["blocks"] = [None] * len(psizes)
-        state["dtype"] = np.dtype(meta["dtype"])
         state["tail"] = tuple(meta["shape"][1:])
 
     def on_chunk(lo, hi, block):

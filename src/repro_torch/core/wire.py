@@ -31,7 +31,7 @@ Framing faults are typed: :class:`BadMagic`, :class:`VersionMismatch`,
 them and invisible to every other tenant of the server.
 
 :class:`SocketBridge` is the client half: it exposes exactly the
-endpoint surface of :class:`~repro.core.engine.AlchemistEngine` that
+endpoint surface of :class:`~repro_torch.core.engine.AlchemistEngine` that
 ``AlchemistContext`` and ``core/transfer.py`` consume (``handshake`` /
 ``submit`` / ``task_op`` / ``describe`` / ``configure`` / ``free`` plus
 the chunked upload/fetch verbs), so a context constructed with

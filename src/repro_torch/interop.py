@@ -7,7 +7,9 @@ The port's ``send_matrix`` and ``engine.put`` apply the same rule through
 :func:`host_to_tensor`, or handle dtypes and CG tolerances would diverge
 from the reference. ml_dtypes ``bfloat16`` arrays — what ``np.asarray``
 gives for a JAX bf16 array — cross through an int16 view, because
-``torch.from_numpy`` refuses them.
+``torch.from_numpy`` refuses them, and a bfloat16 tensor goes back out
+the same way (:func:`tensor_to_numpy`), so a bf16 store crosses to the
+client as bf16, at its own width, as the JAX package hands it out.
 
 :func:`lm_params_from_reference` carries a JAX ``DecoderLM``'s parameters
 into the port's ``DecoderLM``.
@@ -46,9 +48,32 @@ def host_to_tensor(array, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def numpy_dtype(name) -> np.dtype:
+    """A numpy dtype by its name, ``"bfloat16"`` included: that one is
+    ml_dtypes', imported only when a bfloat16 crosses (ImportError where
+    ml_dtypes is absent; nothing widens in its place)."""
+    if str(name) == "bfloat16":
+        import ml_dtypes
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on any device as a host ndarray of its own dtype: the
+    transfer layer's and the server's host copy. bfloat16 comes out as an
+    ml_dtypes ``bfloat16`` array through an int16 view, the reverse of
+    :func:`host_to_tensor`, as ``np.asarray`` of a JAX bf16 array does."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(
+            numpy_dtype("bfloat16"))
+    return t.cpu().numpy()
+
+
 def tensor_to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor on any device as a host ndarray. bfloat16 widens to
-    float32: numpy has no bfloat16 of its own."""
+    """A tensor on any device as a host ndarray for a numerical
+    comparison: bfloat16 widens to float32 (what the tests compare in).
+    The transfer layer keeps the dtype (:func:`tensor_to_numpy`)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()

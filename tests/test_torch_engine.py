@@ -191,6 +191,7 @@ def test_spilled_store_reloads_on_the_engine_device():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch, repro_torch.core, "
+            "repro_torch.core.server, "
             "repro_torch.models.model, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.interop\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
@@ -269,14 +270,20 @@ def test_a_bare_tensor_reads_the_layout_the_reference_derives(pair):
 
 
 def test_the_layout_tag_stays_outside_the_engine():
-    """``get`` hands out the store's tensor (no copy) tagged with its
-    layout; what routines and stores hold is a plain tensor; a result of
-    another shape, or of operands that disagree, carries no tag."""
+    """``get`` hands out the store's tensor (no copy) tagged with the
+    layout it carries; what routines and stores hold is a plain tensor; a
+    result follows its first operand's tag where it keeps that operand's
+    rank and is plain otherwise. A ``layout=`` given to ``put`` labels the
+    store only: its tensor carries the tag it came with. The JAX engine
+    gives the same layouts for each (ROADMAP C3')."""
+    from repro_torch.core import transfer
     from repro_torch.core.layout_tag import LayoutTensor, untag
     eng = port_core.AlchemistEngine(device="cpu")
     try:
-        a = eng.put(torch.ones(4, 4), layout="rowblock")
+        a, _ = transfer.to_engine(eng, np.ones((4, 4), np.float32))
         b = eng.put(torch.ones(4, 4), layout="block2d")
+        assert eng.layout(b) == "block2d"
+        assert untag(eng.get(b))[1] == "replicated"
         got = eng.get(a)
         assert isinstance(got, LayoutTensor)
         assert got.engine_layout == "rowblock"
@@ -285,18 +292,100 @@ def test_the_layout_tag_stays_outside_the_engine():
         assert type(eng._resolve(a)[0]) is torch.Tensor
         assert untag(got + 1)[1] == "rowblock"
         assert untag(torch.exp(got))[1] == "rowblock"
-        for other in (got.T, got.sum(0), got[:2], got + eng.get(b)):
-            assert type(other) is torch.Tensor, other
+        for other in (got.T, got[:2], got + eng.get(b)):
+            assert untag(other)[1] == "rowblock"
+        assert type(got.sum(0)) is torch.Tensor
         h = eng.put(got * 3)
         assert eng.layout(h) == "rowblock"
         assert type(eng._resolve(h)[0]) is torch.Tensor
         eng.overwrite(h, eng.get(b) - 1)
-        assert eng.layout(h) == "block2d"
+        assert eng.layout(h) == "replicated"
         assert type(eng._resolve(h)[0]) is torch.Tensor
         values, _ = torch.max(got, dim=0)
         assert untag(values)[1] == "replicated"
     finally:
         eng.shutdown()
+
+
+# ROADMAP C3': the layout of ``put(<a tensor derived from get>)`` at one
+# worker, through both packages. A is a 4 x 6 upload, v an 8-vector
+# upload, ``fresh`` an untagged (4, 6) array, ``fresh_t`` an untagged
+# (6, 4) one, b2 the array of a store put with layout="block2d" from a
+# fresh array; ``xp`` is torch or jax.numpy.
+_DERIVED = {
+    "A.T": lambda A, v, f, ft, b2, xp: A.T,
+    "A[:2]": lambda A, v, f, ft, b2, xp: A[:2],
+    "A[:, 1:3]": lambda A, v, f, ft, b2, xp: A[:, 1:3],
+    "A.reshape(6, 4)": lambda A, v, f, ft, b2, xp: A.reshape(6, 4),
+    "A @ A.T": lambda A, v, f, ft, b2, xp: A @ A.T,
+    "A.T @ A": lambda A, v, f, ft, b2, xp: A.T @ A,
+    "A @ fresh_t": lambda A, v, f, ft, b2, xp: A @ ft,
+    "A + fresh": lambda A, v, f, ft, b2, xp: A + f,
+    "concatenate([A, A])": lambda A, v, f, ft, b2, xp: xp.cat([A, A]),
+    "exp(A)": lambda A, v, f, ft, b2, xp: xp.exp(A),
+    "v * 2": lambda A, v, f, ft, b2, xp: v * 2,
+    "v[:3]": lambda A, v, f, ft, b2, xp: v[:3],
+    "A.sum(0)": lambda A, v, f, ft, b2, xp: A.sum(0),
+    "A.sum(1)": lambda A, v, f, ft, b2, xp: A.sum(1),
+    "A.max(0)": lambda A, v, f, ft, b2, xp: xp.max0(A),
+    "A.sum()": lambda A, v, f, ft, b2, xp: A.sum(),
+    "A.ravel()": lambda A, v, f, ft, b2, xp: A.ravel(),
+    "A[None]": lambda A, v, f, ft, b2, xp: A[None],
+    "A.reshape(2, 2, 6)": lambda A, v, f, ft, b2, xp: A.reshape(2, 2, 6),
+    "v.reshape(2, 4)": lambda A, v, f, ft, b2, xp: v.reshape(2, 4),
+    "outer(v, v)": lambda A, v, f, ft, b2, xp: xp.outer(v, v),
+    "fresh + A": lambda A, v, f, ft, b2, xp: f + A,
+    "A + b2": lambda A, v, f, ft, b2, xp: A + b2,
+    "b2 - 1": lambda A, v, f, ft, b2, xp: b2 - 1,
+}
+
+
+@pytest.fixture(scope="module")
+def derived_pair():
+    """Per package: (engine, the operands of _DERIVED) at one worker."""
+    import types
+
+    import jax.numpy as jnp
+    from repro.core import transfer as ref_transfer
+    from repro.core.engine import make_engine_mesh
+    from repro_torch.core import transfer
+    a = np.arange(24, dtype=np.float32).reshape(4, 6)
+    v = np.arange(8, dtype=np.float32)
+    out = {}
+    for name, eng, tr, xp in (
+            ("port", port_core.AlchemistEngine(device="cpu"), transfer,
+             types.SimpleNamespace(
+                 cat=torch.cat, exp=torch.exp, outer=torch.outer,
+                 max0=lambda x: x.max(0).values, ones=torch.ones)),
+            ("ref", ref_core.AlchemistEngine(make_engine_mesh(1)),
+             ref_transfer,
+             types.SimpleNamespace(
+                 cat=jnp.concatenate, exp=jnp.exp, outer=jnp.outer,
+                 max0=lambda x: x.max(0), ones=jnp.ones))):
+        ops = (eng.get(tr.to_engine(eng, a)[0]),
+               eng.get(tr.to_engine(eng, v)[0]), xp.ones((4, 6)),
+               xp.ones((6, 4)),
+               eng.get(eng.put(xp.ones((4, 6)), layout="block2d")), xp)
+        out[name] = (eng, ops)
+    yield out
+    for eng, _ in out.values():
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("case", list(_DERIVED))
+def test_a_derived_tensor_reads_the_layout_the_reference_derives(
+        derived_pair, case):
+    """The layout ``put`` gives an array derived from ``get``: the same in
+    both packages for every case (rowblock for a transpose, a slice, a
+    same-rank reshape, a product, a concatenation or an elementwise op of
+    A; replicated for a reduction, a flatten, a rank change, an untagged
+    first operand, and the derivatives of a fresh array labelled
+    block2d)."""
+    seen = []
+    for name in ("port", "ref"):
+        eng, ops = derived_pair[name]
+        seen.append(eng.layout(eng.put(_DERIVED[case](*ops))))
+    assert seen[0] == seen[1], (case, seen)
 
 
 def test_transfer_records_cross_between_the_packages():
