@@ -14,7 +14,11 @@ paper's offload loop through the client entry point
 
 and streams the factors back. Rows are cut from the paper's 2,251,569
 (TIMIT) and 6,177,583 (ocean) to 1,048,576 each so one 80 GB card holds
-the work (Z = n x D fp32 is 41.9 GB). Then the same loop runs through its
+the work (Z = n x D fp32 is 41.9 GB). Then a chain submitted in one burst
+(``G = gram(A)``, ``G^T``, ``S = G + G^T``, ``P = S S`` on the ocean field
+8,096 wide, cut to 65,536 rows) runs as one task, captured into a CUDA
+graph and replayed, held against the same chain unfused, and so does a
+16-stage multiply chain at 512 x 512. Then the same loop runs through its
 deployed entry point, a client ``AlchemistContext(address=...)`` talking
 TCP frames to the port's server (``repro_torch.core.server``) on the
 card: the same speech data and CG, whose W must equal the in-memory W bit
@@ -788,6 +792,292 @@ def phase_svd(ac, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: chain fusion — a burst-submitted chain runs as one task and
+# replays from one CUDA graph
+# ---------------------------------------------------------------------------
+# the ocean field at the §4.2 width, cut from 1,048,576 rows to 65,536
+# (2.1 GB fp32 each) so that the phase takes seconds, not minutes
+FUSED_ROWS = 65_536
+# benchmarks/backend_fusion.py's chain: 16 multiplies at 512 x 512, where
+# launch overhead, not arithmetic, sets the time
+FUSED_STAGES, FUSED_SMALL = 16, 512
+FUSED_REPS = 5
+# rows of G held against a float64 Gram
+FUSED_REF_ROWS = 512
+
+
+def _burst_gram_chain(engine, ac, al) -> tuple:
+    """G = gram(A), Gt = G^T, S = G + Gt, P = S S submitted in one burst
+    with the scheduler paused. Returns the wall seconds to P, the four
+    outputs on the card and the task log's change."""
+    el = ac.library("elemental")
+    before = engine.task_log.stats()
+    t0 = time.perf_counter()
+    engine.scheduler.pause()
+    g = el.gram(A=al)
+    gt = el.transpose(A=g)
+    s = el.add(A=g, B=gt)
+    p = el.multiply(A=s, B=s)
+    engine.scheduler.resume()
+    p.result()
+    seconds = time.perf_counter() - t0
+    after = engine.task_log.stats()
+    outs = [engine._resolve(x.handle, session=ac.session)[0]
+            for x in (g, gt, s, p)]
+    delta = {k: after[k] - before[k]
+             for k in ("dispatched", "fused_tasks", "fused_ops")}
+    # the engine's seconds of the four steps (a fused task splits its
+    # program's seconds over them)
+    delta["engine_s"] = sum(x.stats()["_elapsed"] for x in (g, gt, s, p))
+    return seconds, outs, delta
+
+
+def _burst_multiply_chain(engine, ac, al) -> tuple:
+    el = ac.library("elemental")
+    before = engine.task_log.stats()
+    t0 = time.perf_counter()
+    engine.scheduler.pause()
+    xs = [al]
+    for _ in range(FUSED_STAGES):
+        xs.append(el.multiply(A=xs[-1], B=al))
+    engine.scheduler.resume()
+    xs[-1].result()
+    seconds = time.perf_counter() - t0
+    after = engine.task_log.stats()
+    out = engine._resolve(xs[-1].handle, session=ac.session)[0]
+    delta = {k: after[k] - before[k]
+             for k in ("dispatched", "fused_tasks", "fused_ops")}
+    delta["engine_s"] = sum(x.stats()["_elapsed"] for x in xs[1:])
+    return seconds, out, delta
+
+
+def _one_task(delta, ops, what):
+    got = {k: delta[k] for k in ("dispatched", "fused_tasks", "fused_ops")}
+    if got != {"dispatched": 1, "fused_tasks": 1, "fused_ops": ops}:
+        raise AssertionError(f"{what}: not one fused task of {ops} ops: "
+                             f"{delta}")
+
+
+def _median_s(fn, reps=FUSED_REPS) -> float:
+    return float(np.median([fn() for _ in range(reps)]))
+
+
+def phase_fused(counters) -> dict:
+    """A burst chain as one task, replayed from a CUDA graph: three runs of
+    the gram chain (capture; replay after the input's contents were
+    replaced at the same address; a second resident matrix, a second
+    capture), each held against the same chain unfused, then the
+    16-stage multiply chain. Returns the launch counts of the engine's
+    runs."""
+    import torch
+    from repro_torch.core import AlchemistContext, AlchemistEngine
+    from repro_torch.core.libraries import elemental
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    # no run may be served from the result cache
+    engine = AlchemistEngine(device=DEVICE, cache_entries=0)
+    engine.load_library("elemental", elemental)
+    ac = AlchemistContext(engine=engine)
+    backend = engine.backends["torch"]
+    fields = []
+    t0 = time.perf_counter()
+    for seed in (1, 2):
+        field, _ = ocean_like(FUSED_ROWS, OCEAN_D, seed=seed)
+        fields.append(ac.send_matrix(field, dedup=False))
+    upload_s = time.perf_counter() - t0
+    a1, a2 = (engine._resolve(al.handle, session=ac.session)[0]
+              for al in fields)
+
+    for c in counters.values():
+        c.reset()
+    gram_runs = []
+
+    def counted(run, what):
+        before = counters["gram"].value
+        got = run()
+        if counters["gram"].value - before != 1:
+            raise AssertionError(f"{what}: gram launched "
+                                 f"{counters['gram'].value - before} times")
+        return got
+
+    # 1: capture (the eager warm-up answers this call)
+    s1, run1, d1 = counted(
+        lambda: _burst_gram_chain(engine, ac, fields[0]), "capture")
+    _one_task(d1, 4, "capture")
+    kept1 = [t.clone() for t in run1]
+    # 2: replay after new contents at the same address. engine.overwrite
+    # is copy-on-write (a new tensor, a new address), so the resident
+    # tensor is written in place
+    ptr = a1.data_ptr()
+    a1.copy_(a2)
+    if engine._resolve(fields[0].handle, session=ac.session)[0] \
+            .data_ptr() != ptr:
+        raise AssertionError("the resident matrix moved")
+    s2, run2, d2 = counted(
+        lambda: _burst_gram_chain(engine, ac, fields[0]), "replay")
+    _one_task(d2, 4, "replay")
+    intact = all(bool(torch.equal(a, b)) for a, b in zip(run1, kept1))
+    if not intact:
+        raise AssertionError("a replay overwrote an earlier run's outputs")
+    if backend.program_cache_info()["programs"] != 1:
+        raise AssertionError(f"replay captured anew: "
+                             f"{backend.program_cache_info()}")
+    # 3: the second resident matrix, a second capture
+    s3, run3, d3 = counted(
+        lambda: _burst_gram_chain(engine, ac, fields[1]), "second capture")
+    _one_task(d3, 4, "second capture")
+    programs = backend.program_cache_info()["programs"]
+    if programs != 2 or backend.capture_failures:
+        raise AssertionError(f"programs {programs}, capture failures "
+                             f"{backend.capture_failures}")
+
+    # the same chain unfused, on the same engine
+    ac.configure(fusion=False)
+    su, unfused, du = counted(
+        lambda: _burst_gram_chain(engine, ac, fields[1]), "unfused")
+    if {k: du[k] for k in ("dispatched", "fused_tasks", "fused_ops")} != \
+            {"dispatched": 4, "fused_tasks": 0, "fused_ops": 0}:
+        raise AssertionError(f"unfused chain: {du}")
+    ac.configure(fusion=True)
+    names = ("G", "Gt", "S", "P")
+    max_err, bits = {}, {}
+    for run, outs in (("replay", run2), ("second_capture", run3)):
+        for name, got, want in zip(names, outs, unfused):
+            err = close("gram", got, want, "float32")
+            max_err[f"{run}_{name}"] = err
+            bits[f"{run}_{name}"] = bool(torch.equal(got, want))
+    # G against a float64 Gram of its first rows
+    lead = run3[0][:FUSED_REF_ROWS]
+    want = None
+    for lo in range(0, FUSED_ROWS, 8_192):
+        blk = a2[lo:lo + 8_192].double()
+        part = blk[:, :FUSED_REF_ROWS].T @ blk
+        want = part if want is None else want.add_(part)
+    g64_err = close("gram", lead, want.float(), "float32")
+    launches = {k: c.value for k, c in counters.items()}
+
+    # eager: the plain calls on the card, no engine
+    def eager_gram_chain():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g = gram_ops.gram(a2)
+        s = g + g.T
+        s @ s
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    eager_s = _median_s(eager_gram_chain, 3)
+    replays = [_burst_gram_chain(engine, ac, fields[1]) for _ in range(3)]
+    replay_s = float(np.median([r[0] for r in replays]))
+    replay_engine_s = float(np.median([r[2]["engine_s"] for r in replays]))
+    del replays
+    for al in fields:
+        al.free()
+    del a1, a2, run1, run2, run3, kept1, unfused, lead, want
+    gc.collect()
+
+    # the 16-stage multiply chain
+    g = torch.Generator().manual_seed(4)
+    q = torch.linalg.qr(torch.randn(FUSED_SMALL, FUSED_SMALL,
+                                    dtype=torch.float64, generator=g))[0]
+    small = ac.send_matrix(q.float().numpy(), dedup=False)
+    sc, out_c, dc = _burst_multiply_chain(engine, ac, small)
+    _one_task(dc, FUSED_STAGES, "multiply chain capture")
+    chain_replays, chain_replay_engine = [], []
+    for _ in range(FUSED_REPS):
+        sr, out_r, dr = _burst_multiply_chain(engine, ac, small)
+        _one_task(dr, FUSED_STAGES, "multiply chain replay")
+        chain_replays.append(sr)
+        chain_replay_engine.append(dr["engine_s"])
+    ac.configure(fusion=False)
+    chain_unfused, chain_unfused_engine = [], []
+    for _ in range(3):
+        sx, out_u, dx = _burst_multiply_chain(engine, ac, small)
+        chain_unfused.append(sx)
+        chain_unfused_engine.append(dx["engine_s"])
+    ac.configure(fusion=True)
+    small_err = close("gram", out_r, out_u, "float32")
+    small_bits = bool(torch.equal(out_r, out_u))
+    a_small = engine._resolve(small.handle, session=ac.session)[0]
+
+    def eager_multiply_chain():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = a_small
+        for _ in range(FUSED_STAGES):
+            x = x @ a_small
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    chain_eager_s = _median_s(eager_multiply_chain)
+    # the multiply chain's program alone, from this (warm) thread: its
+    # replay and output copies on the host's clock, its graph on the
+    # device's
+    program = next(reversed(backend._programs.values()))
+
+    def replay_alone():
+        torch.cuda.current_stream().synchronize()
+        t = time.perf_counter()
+        program.replay()
+        torch.cuda.current_stream().synchronize()
+        return time.perf_counter() - t
+    chain_replay_alone_s = _median_s(replay_alone)
+    chain_graph_ms = cuda_time_ms(program.graph.replay, reps=FUSED_REPS)
+    del program
+    if backend.program_cache_info()["programs"] != 3 or \
+            backend.capture_failures:
+        raise AssertionError(f"{backend.program_cache_info()}, capture "
+                             f"failures {backend.capture_failures}")
+
+    # device memory the live programs hold: their graphs' pools
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    backend.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_alloc = alloc - torch.cuda.memory_allocated()
+    held_reserved = reserved - torch.cuda.memory_reserved()
+    ac.stop()
+    engine.shutdown()
+    emit({"phase": "fused", "rows": FUSED_ROWS, "d": OCEAN_D,
+          "cut": "ocean field 1,048,576 -> 65,536 rows, two resident "
+                 "matrices", "upload_s": upload_s,
+          "gram_chain": {
+              "ops": 4, "capture_run_s": s1, "replay_run_s": s2,
+              "second_capture_run_s": s3,
+              "fused_replay_median_s": replay_s,
+              "fused_replay_engine_median_s": replay_engine_s,
+              "capture_run_engine_s": d1["engine_s"],
+              "unfused_s": su, "unfused_engine_s": du["engine_s"],
+              "eager_s": eager_s, "tasks_per_run": 1,
+              "earlier_outputs_intact": intact,
+              "max_abs_err_vs_unfused": max_err,
+              "bits_match_unfused": bits,
+              "g_rows_vs_float64_max_abs_err": g64_err},
+          "multiply_chain": {
+              "stages": FUSED_STAGES, "n": FUSED_SMALL,
+              "capture_run_s": sc,
+              "fused_replay_median_s": float(np.median(chain_replays)),
+              "fused_replay_engine_median_s":
+                  float(np.median(chain_replay_engine)),
+              "unfused_median_s": float(np.median(chain_unfused)),
+              "unfused_engine_median_s":
+                  float(np.median(chain_unfused_engine)),
+              "eager_median_s": chain_eager_s,
+              "replay_and_copies_alone_median_s": chain_replay_alone_s,
+              "graph_replay_device_ms": chain_graph_ms,
+              "max_abs_err_vs_unfused": small_err,
+              "bits_match_unfused": small_bits},
+          "programs": 3, "capture_failures": backend.capture_failures,
+          "capture_s": backend.capture_seconds,
+          "held_by_programs_allocated_bytes": held_alloc,
+          "held_by_programs_reserved_bytes": held_reserved,
+          "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the offload loop over TCP, through the port's server
 # ---------------------------------------------------------------------------
 def wire_bytes(bridge, server, endpoint: str) -> dict:
@@ -1151,6 +1441,12 @@ def main() -> int:
     for k, v in svd_launches.items():
         launches[k] += v
     del ac, ac2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a burst chain as one task, replayed from one CUDA graph
+    for k, v in phase_fused(counters).items():
+        launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
 

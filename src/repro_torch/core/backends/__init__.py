@@ -8,8 +8,9 @@ to :data:`DEFAULT_BACKEND`.
 
 Bundled backends:
 
-* ``torch`` — eager PyTorch on the engine's device, the port's CUDA
-  kernels for CUDA tensors (the default; no fusion yet);
+* ``torch`` — PyTorch on the engine's device, the port's CUDA kernels
+  for CUDA tensors (the default); fuses burst chains into one task,
+  replayed from a CUDA graph on a card;
 * ``reference`` — plain numpy, sequential, no fusion: the conformance
   oracle and debugging tool.
 """

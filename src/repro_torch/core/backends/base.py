@@ -366,3 +366,8 @@ class ExecutionBackend(abc.ABC):
                     **resolve_step_args(step, outs, inputs)))
             return outs
         return run
+
+    def release(self) -> None:
+        """Drop whatever the backend holds on the device between calls
+        (captured programs); the engine calls it at shutdown. Nothing by
+        default."""

@@ -21,7 +21,8 @@ counter-based PRNG is not reproducible without jax.
 
 Implementations receive numpy arrays for matrix params (the engine
 materializes handles via :meth:`to_native`, copying device tensors to
-host; bfloat16 widens to float32, which numpy cannot hold) and return
+host; bfloat16 comes out as ml_dtypes bfloat16, as ``np.asarray`` of a
+JAX bf16 array does) and return
 numpy arrays — the engine mints output handles through its put path, so
 reference results land on the engine device in the same layout torch
 results do.
@@ -40,7 +41,7 @@ from repro_torch.core.backends import base
 from repro_torch.core.backends.base import REPLICATED, ROWBLOCK
 from repro_torch.core.libraries import mllib
 from repro_torch.frontend.rowmatrix import RowMatrix
-from repro_torch.interop import tensor_to_host
+from repro_torch.interop import tensor_to_numpy
 
 # layouts the dense kernels consume directly; a block2d operand is
 # redistributed first (the Elemental re-layout step, made explicit)
@@ -48,9 +49,10 @@ _DENSE = (ROWBLOCK, REPLICATED)
 
 
 def host_array(array) -> np.ndarray:
-    """An engine tensor (any device) or array-like as a host ndarray."""
+    """An engine tensor (any device) or array-like as a host ndarray of
+    its own dtype (bfloat16 stays bfloat16, as in the JAX package)."""
     if isinstance(array, torch.Tensor):
-        return tensor_to_host(array)
+        return tensor_to_numpy(array)
     return np.asarray(array)
 
 

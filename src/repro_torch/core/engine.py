@@ -48,18 +48,18 @@ The engine owns
   a host-materialized array that silently drops the engine layout. When
   a worker picks up the head of a dependency chain submitted in one
   burst and the session's backend fuses, the engine *claims* the whole
-  fusible chain from the scheduler and runs it as one program (the JAX
-  package's jax backend does; the port's torch backend does not fuse
-  yet, so its chains run step by step).
+  fusible chain from the scheduler and runs it as one task (the torch
+  backend replays a capture-safe chain on a card from one CUDA graph,
+  as the JAX package's jax backend runs one ``jax.jit`` program).
 
 The engine runs on the device it is given: ``"cuda"`` by default, which
 raises where CUDA is absent — only an explicit ``device="cpu"`` runs it
 on the CPU. ``num_workers`` is accepted and capped at the one device,
 as the JAX engine caps its mesh at the devices it has (§3.1.1:
-Alchemist launched on "a user-specified number of nodes"). The torch
-backend never fuses, so every step runs eagerly, and the engine waits
-for the device (``torch.cuda.synchronize``) before it stamps a step's
-seconds: CUDA launches return before the work is done.
+Alchemist launched on "a user-specified number of nodes"). The engine
+waits for the worker's stream before it stamps a step's or a fused
+chain's seconds: CUDA launches and graph replays return before the work
+is done.
 
 Stores are never mutated in place: copy-on-write overwrite and
 cross-session cache aliases rely on a store's tensor staying what it
@@ -476,6 +476,8 @@ class AlchemistEngine:
         construct a new one to continue. Idempotent."""
         self.wait_warmup()
         self.scheduler.shutdown()
+        for be in self.backends.values():
+            be.release()
         with self._state_lock:
             self._task_meta.clear()
             if self.cache is not None:
@@ -1965,11 +1967,15 @@ class AlchemistEngine:
         return self._bind_outputs(backend, outs, cmd)
 
     def _sync(self) -> None:
-        """Wait for the device's queued work, so the step's seconds (its
-        ``elapsed``, the scheduler's ``exec_s``, the QoS debt reconciled
-        against it) measure the work and not just its launches."""
+        """Wait for the work this worker queued on the device, so the
+        step's seconds (its ``elapsed``, the scheduler's ``exec_s``, the
+        QoS debt reconciled against it) measure the work and not just its
+        launches. The current stream, not the whole device: a device-wide
+        synchronisation from one worker fails, and invalidates the
+        capture, while another worker captures a CUDA graph
+        (``TorchBackend``)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _materialize_arg(self, handle: MatrixHandle, session: int,
                          backend: backend_base.ExecutionBackend,
@@ -2121,6 +2127,7 @@ class AlchemistEngine:
             outs_list = program(run_inputs)
             if crops is not None:
                 outs_list = self._crop_outputs(backend, outs_list, crops)
+            self._sync()
             elapsed = time.perf_counter() - t0
         except Exception:
             # fused lowering/execution failed; re-run with eager,

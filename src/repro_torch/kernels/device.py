@@ -8,6 +8,7 @@ other device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 
@@ -151,20 +152,50 @@ def tiles(*dims: int) -> int:
     return out
 
 
+# per thread: the launches a CUDA graph capture on that thread recorded
+# instead of counting (see :func:`capturing_launches`)
+_captured = threading.local()
+
+
 class LaunchCounter:
     """A count of kernel launches, safe to bump from engine worker
     threads. ``chip_smoke.py`` zeroes every counter before it drives the
     main path and reads them after, to show the path went through the
-    kernels."""
+    kernels.
+
+    A wrapper called while its thread captures a CUDA graph launches
+    nothing: the kernel goes into the graph. Its ``add`` is then recorded
+    for the capture, which adds it again at every replay of the graph
+    (:func:`capturing_launches`, :meth:`add` with ``n``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.value = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        recorded = getattr(_captured, "counts", None)
+        if recorded is not None:
+            recorded[self] = recorded.get(self, 0) + n
+            return
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Around a CUDA graph capture on this thread: the launch counters
+    bumped inside record into the dict it yields (counter -> launches
+    captured) instead of counting, since a captured kernel is not
+    launched. Other threads count as usual."""
+    if getattr(_captured, "counts", None) is not None:
+        raise RuntimeError("a capture is already recording launches on "
+                           "this thread")
+    _captured.counts = {}
+    try:
+        yield _captured.counts
+    finally:
+        _captured.counts = None

@@ -53,10 +53,14 @@ def test_registration_flags_equal_the_jax_backends():
 
 
 def test_registry_defaults_to_torch_and_never_fuses():
+    """The torch backend fuses burst chains (one task, a CUDA graph on a
+    card); it still has no ``get_or_compile``, so single ops never go
+    through a program cache. The reference backend never fuses."""
     assert port_backends.DEFAULT_BACKEND == "torch"
     assert set(port_backends.available_backends()) == {"torch", "reference"}
     caps = TORCH.capabilities()
-    assert not caps["supports_fusion"]
+    assert caps["supports_fusion"]
+    assert not port_backends.ReferenceBackend().supports_fusion
     assert not hasattr(TORCH, "get_or_compile")
 
 
@@ -126,6 +130,25 @@ def test_cg_solve_matches_reference(rf_dim):
     np.testing.assert_allclose(port["W"], ref["W"], atol=1e-4)
     assert port["expanded_dim"] == ref["expanded_dim"] == (rf_dim or 12)
     assert port["relative_residual"] <= 1e-6
+
+
+def test_cg_keeps_a_column_that_converged_exactly():
+    """A ridge system whose second column's residual reaches exactly zero
+    in float32 after two iterations (found by the CG property of
+    ``tests/test_torch_properties.py``): the solve goes on for the other
+    column and the converged one keeps its solution, where 0/0 step sizes
+    made it NaN."""
+    rng = np.random.RandomState(98)
+    x, y = rng.randn(20, 2), rng.randn(20, 2)
+    lam = 1e-2
+    port = TORCH.routine_impl("skylark", "cg_solve").fn(
+        X=torch.from_numpy(x.astype(np.float32)),
+        Y=torch.from_numpy(y.astype(np.float32)), lam=lam, max_iters=10,
+        tol=1e-12)
+    want = np.linalg.solve(x.T @ x + 20 * lam * np.eye(2), x.T @ y)
+    assert np.isfinite(port["residual_history"]).all()
+    np.testing.assert_allclose(port["W"].numpy(), want, atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_nmf_matches_reference_draws():

@@ -224,3 +224,193 @@ def test_cuda_lru_scan_is_the_sequential_fma_scan(cuda, dtype):
             want[:, t] = h
         got = lru_scan(a.to(cuda), x.to(cuda), h0.to(cuda)).cpu()
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# chain fusion on the card: a burst chain replays from one CUDA graph
+# ---------------------------------------------------------------------------
+def _fusion_engine(cuda, **kw):
+    from repro_torch.core import AlchemistContext, AlchemistEngine
+    from repro_torch.core.libraries import elemental
+    engine = AlchemistEngine(device=cuda, cache_entries=0, **kw)
+    engine.load_library("elemental", elemental)
+    return engine, AlchemistContext(engine=engine)
+
+
+def _burst(engine, ac, al):
+    """G = gram(A), Gt = G^T, S = G + Gt, P = S S, submitted in one burst;
+    returns the four outputs as device tensors."""
+    el = ac.library("elemental")
+    engine.scheduler.pause()
+    g = el.gram(A=al)
+    gt = el.transpose(A=g)
+    s = el.add(A=g, B=gt)
+    p = el.multiply(A=s, B=s)
+    engine.scheduler.resume()
+    p.result()
+    return [_resident(engine, ac, x) for x in (g, gt, s, p)]
+
+
+def _resident(engine, ac, al):
+    return engine._resolve(al.handle, session=ac.session)[0]
+
+
+@pytest.mark.cuda
+def test_cuda_burst_chain_replays_from_one_graph_and_counts_gram(cuda):
+    """Capture on the first run, replay on the second: one dispatched task
+    and four fused ops each time, one program, no capture failure, gram
+    counted once per run (the replay adds what the capture recorded), and
+    the outputs equal the unfused chain's within the fp32 kernel
+    tolerance."""
+    from repro_torch.kernels.gram.ops import LAUNCHES
+    engine, ac = _fusion_engine(cuda)
+    backend = engine.backends["torch"]
+    try:
+        g = torch.Generator().manual_seed(11)
+        al = ac.send_matrix(torch.randn(4096, 256, generator=g).numpy(),
+                            dedup=False)
+        for run in range(2):
+            before, launches = engine.task_log.stats(), LAUNCHES.value
+            outs = _burst(engine, ac, al)
+            after = engine.task_log.stats()
+            assert after["dispatched"] - before["dispatched"] == 1
+            assert after["fused_ops"] - before["fused_ops"] == 4
+            assert LAUNCHES.value - launches == 1, run
+            assert backend.program_cache_info()["programs"] == 1
+            assert backend.capture_failures == 0
+        ac.configure(fusion=False)
+        want = _burst(engine, ac, al)
+        for got, ref in zip(outs, want):
+            torch.testing.assert_close(got, ref, rtol=2e-5,
+                                       atol=2e-5 * float(ref.abs().max()))
+    finally:
+        ac.stop()
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_replay_leaves_earlier_outputs_intact(cuda):
+    """The graph writes its outputs into its own pool at every replay: each
+    run hands out copies, so a replay after the input changed in place
+    (same address, new contents) computes from the new contents and
+    leaves the earlier runs' outputs as they were. The chain's first step
+    is a transpose of the input, an output the capture copies into the
+    graph instead of keeping a view of the input."""
+    engine, ac = _fusion_engine(cuda)
+    try:
+        el = ac.library("elemental")
+        g = torch.Generator().manual_seed(12)
+        x = torch.randn(300, 300, generator=g)
+        al = ac.send_matrix(x.numpy(), dedup=False)
+        resident = _resident(engine, ac, al)
+        ptr = resident.data_ptr()
+        live, kept = [], []
+        for scale in (1.0, 2.0, 3.0):
+            resident.copy_(x.to(cuda) * scale)        # same address
+            engine.scheduler.pause()
+            t = el.transpose(A=al)
+            s = el.add(A=t, B=al)
+            p = el.multiply(A=s, B=al)
+            engine.scheduler.resume()
+            p.result()
+            outs = [_resident(engine, ac, h) for h in (t, s, p)]
+            live.append(outs)
+            kept.append([o.clone() for o in outs])
+            assert _resident(engine, ac, al).data_ptr() == ptr
+        assert engine.backends["torch"].program_cache_info()["programs"] \
+            == 1
+        for scale, outs, copies in zip((1.0, 2.0, 3.0), live, kept):
+            xs = x.to(cuda) * scale
+            want = [xs.T, xs.T + xs, (xs.T + xs) @ xs]
+            for got, copy, ref in zip(outs, copies, want):
+                assert torch.equal(got, copy)       # never overwritten
+                torch.testing.assert_close(got, ref, rtol=2e-5,
+                                           atol=2e-5 * float(
+                                               ref.abs().max()))
+    finally:
+        ac.stop()
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_program_lru_and_shutdown_release_the_graph_pools(cuda):
+    """A new input address is a new capture; past the bound the oldest
+    program is released (its graph reset, its pool returned), and
+    shutdown releases the rest."""
+    engine, ac = _fusion_engine(cuda, program_cache_size=1)
+    backend = engine.backends["torch"]
+    try:
+        g = torch.Generator().manual_seed(13)
+        a1 = ac.send_matrix(torch.randn(2048, 512, generator=g).numpy(),
+                            dedup=False)
+        a2 = ac.send_matrix(torch.randn(2048, 512, generator=g).numpy(),
+                            dedup=False)
+        _burst(engine, ac, a1)
+        _burst(engine, ac, a2)
+        info = backend.program_cache_info()
+        assert info == {"programs": 1, "max_programs": 1, "evictions": 1}
+        assert backend.capture_failures == 0
+        # what release frees is one program's outputs in its pool: G, S
+        # and P (Gt is a view of G); the evicted program's went with it
+        # (kept, release would free twice as much)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        backend.release()
+        freed = before - torch.cuda.memory_allocated()
+        out = 512 * 512 * 4
+        assert 3 * out <= freed < 6 * out, freed
+        _burst(engine, ac, a1)                    # captured anew
+        assert backend.program_cache_info()["programs"] == 1
+    finally:
+        ac.stop()
+        engine.shutdown()
+    assert backend.program_cache_info()["programs"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_captures_while_other_workers_launch_and_synchronise(cuda):
+    """Captures run on a side stream in ``thread_local`` mode: another
+    worker's eager launches and device synchronisations, running all the
+    while, neither break a capture nor are broken by one."""
+    import threading
+    from repro_torch.core import AlchemistContext
+    engine, ac = _fusion_engine(cuda)
+    ac2 = AlchemistContext(engine=engine)
+    backend = engine.backends["torch"]
+    try:
+        g = torch.Generator().manual_seed(14)
+        mats = [ac.send_matrix(torch.randn(1024, 256, generator=g).numpy(),
+                               dedup=False) for _ in range(6)]
+        other = ac2.send_matrix(torch.randn(512, 512, generator=g).numpy(),
+                                dedup=False)
+        stop, errors, calls = threading.Event(), [], [0]
+
+        def eager_traffic():
+            try:
+                while not stop.is_set():
+                    ac2.call("elemental", "multiply", A=other, B=other)
+                    calls[0] += 1
+            except Exception as e:          # reported below
+                errors.append(e)
+
+        t = threading.Thread(target=eager_traffic)
+        t.start()
+        try:
+            runs = [(_burst(engine, ac, al), al) for al in mats]
+        finally:
+            stop.set()
+            t.join(timeout=120)
+        assert not t.is_alive() and not errors and calls[0] > 0
+        assert backend.capture_failures == 0
+        assert backend.program_cache_info()["programs"] == len(mats)
+        for outs, al in runs:
+            x = _resident(engine, ac, al)
+            gram = x.T @ x
+            s = gram + gram.T
+            for got, ref in zip(outs, (gram, gram.T, s, s @ s)):
+                torch.testing.assert_close(
+                    got, ref, rtol=2e-5, atol=2e-5 * float(ref.abs().max()))
+    finally:
+        ac2.stop()
+        ac.stop()
+        engine.shutdown()
