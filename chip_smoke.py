@@ -18,7 +18,14 @@ the work (Z = n x D fp32 is 41.9 GB). Then a chain submitted in one burst
 (``G = gram(A)``, ``G^T``, ``S = G + G^T``, ``P = S S`` on the ocean field
 8,096 wide, cut to 65,536 rows) runs as one task, captured into a CUDA
 graph and replayed, held against the same chain unfused, and so does a
-16-stage multiply chain at 512 x 512. Then the same loop runs through its
+16-stage multiply chain at 512 x 512. Then the compile cache: an
+odd-shaped tenant mix at the paper's widths (a TIMIT block times its
+weights, the Gram of 60,000 x 4,000, a transpose, an add and a 3-stage
+multiply chain) served by a cold engine and, after warmup() over the
+executable index it left, by a fresh one with nothing built on the
+request path; the same warm restart across two server processes sharing
+a compile cache dir; and the gram chain on the ocean field padded to
+8,192 columns by bucketing. Then the same loop runs through its
 deployed entry point, a client ``AlchemistContext(address=...)`` talking
 TCP frames to the port's server (``repro_torch.core.server``) on the
 card: the same speech data and CG, whose W must equal the in-memory W bit
@@ -51,6 +58,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -862,20 +870,26 @@ def _median_s(fn, reps=FUSED_REPS) -> float:
     return float(np.median([fn() for _ in range(reps)]))
 
 
-def phase_fused(counters) -> dict:
+def phase_fused(counters) -> tuple:
     """A burst chain as one task, replayed from a CUDA graph: three runs of
     the gram chain (capture; replay after the input's contents were
     replaced at the same address; a second resident matrix, a second
     capture), each held against the same chain unfused, then the
     16-stage multiply chain. Returns the launch counts of the engine's
-    runs."""
+    runs and what phase_warmup compares with: the second field on the
+    host and the gram chain's median replay seconds."""
     import torch
     from repro_torch.core import AlchemistContext, AlchemistEngine
     from repro_torch.core.libraries import elemental
     from repro_torch.kernels.gram import ops as gram_ops
 
-    # no run may be served from the result cache
-    engine = AlchemistEngine(device=DEVICE, cache_entries=0)
+    # no run may be served from the result cache. Unbucketed, so that the
+    # chains run at their exact shapes as they did before the engine had
+    # a program cache: the 65,536 x 8,096 inputs are large slots, read in
+    # place, one capture per input address (phase_warmup runs the same
+    # chain bucketed)
+    engine = AlchemistEngine(device=DEVICE, cache_entries=0,
+                             bucketing=False)
     engine.load_library("elemental", elemental)
     ac = AlchemistContext(engine=engine)
     backend = engine.backends["torch"]
@@ -884,6 +898,7 @@ def phase_fused(counters) -> dict:
     for seed in (1, 2):
         field, _ = ocean_like(FUSED_ROWS, OCEAN_D, seed=seed)
         fields.append(ac.send_matrix(field, dedup=False))
+    second_field = field
     upload_s = time.perf_counter() - t0
     a1, a2 = (engine._resolve(al.handle, session=ac.session)[0]
               for al in fields)
@@ -919,17 +934,19 @@ def phase_fused(counters) -> dict:
     intact = all(bool(torch.equal(a, b)) for a, b in zip(run1, kept1))
     if not intact:
         raise AssertionError("a replay overwrote an earlier run's outputs")
-    if backend.program_cache_info()["programs"] != 1:
-        raise AssertionError(f"replay captured anew: "
-                             f"{backend.program_cache_info()}")
+    # the chain's program (signature-keyed, no graph of its own) and the
+    # one capture for this input's address
+    if backend.graphs() != 1 or \
+            backend.program_cache_info()["programs"] != 2:
+        raise AssertionError(f"replay captured anew: {backend.graphs()} "
+                             f"graphs, {backend.program_cache_info()}")
     # 3: the second resident matrix, a second capture
     s3, run3, d3 = counted(
         lambda: _burst_gram_chain(engine, ac, fields[1]), "second capture")
     _one_task(d3, 4, "second capture")
-    programs = backend.program_cache_info()["programs"]
-    if programs != 2 or backend.capture_failures:
-        raise AssertionError(f"programs {programs}, capture failures "
-                             f"{backend.capture_failures}")
+    if backend.graphs() != 2 or backend.capture_failures:
+        raise AssertionError(f"graphs {backend.graphs()}, capture "
+                             f"failures {backend.capture_failures}")
 
     # the same chain unfused, on the same engine
     ac.configure(fusion=False)
@@ -1013,18 +1030,25 @@ def phase_fused(counters) -> dict:
     # device's
     program = next(reversed(backend._programs.values()))
 
+    # (its input is a small slot: a static buffer it copies into first)
+    program_inputs = {slot: a_small for slot in program.buffers}
+
     def replay_alone():
         torch.cuda.current_stream().synchronize()
         t = time.perf_counter()
-        program.replay()
+        program.replay(program_inputs)
         torch.cuda.current_stream().synchronize()
         return time.perf_counter() - t
     chain_replay_alone_s = _median_s(replay_alone)
     chain_graph_ms = cuda_time_ms(program.graph.replay, reps=FUSED_REPS)
-    del program
-    if backend.program_cache_info()["programs"] != 3 or \
+    del program, program_inputs
+    # two gram-chain captures, the gram chain's program, the multiply
+    # chain's captured program
+    if backend.graphs() != 3 or \
+            backend.program_cache_info()["programs"] != 4 or \
             backend.capture_failures:
-        raise AssertionError(f"{backend.program_cache_info()}, capture "
+        raise AssertionError(f"{backend.graphs()} graphs, "
+                             f"{backend.program_cache_info()}, capture "
                              f"failures {backend.capture_failures}")
 
     # device memory the live programs hold: their graphs' pools
@@ -1033,6 +1057,7 @@ def phase_fused(counters) -> dict:
     torch.cuda.empty_cache()
     alloc, reserved = torch.cuda.memory_allocated(), \
         torch.cuda.memory_reserved()
+    held_counted = backend.held_bytes()
     backend.release()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1069,11 +1094,338 @@ def phase_fused(counters) -> dict:
               "graph_replay_device_ms": chain_graph_ms,
               "max_abs_err_vs_unfused": small_err,
               "bits_match_unfused": small_bits},
-          "programs": 3, "capture_failures": backend.capture_failures,
+          "programs": 4, "graphs": 3,
+          "capture_failures": backend.capture_failures,
           "capture_s": backend.capture_seconds,
           "held_by_programs_allocated_bytes": held_alloc,
           "held_by_programs_reserved_bytes": held_reserved,
+          "held_bytes_counted": held_counted,
           "launches": launches})
+    return launches, {"field": second_field, "replay_s": replay_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the compile cache — warmup, cold against warm first calls, the
+# warm restart across two server processes, bucketing at the ocean width
+# ---------------------------------------------------------------------------
+# an odd-shaped tenant mix at widths of the paper's workloads: a block of
+# 3,000 TIMIT rows (440 features) times a 440 x 147 weight, the Gram of
+# 60,000 x 4,000, a transpose and an add off the bucket grid, and
+# benchmarks/compile_warmup.py's 3-stage multiply chain at 19 x 19
+WARM_MIX = [
+    ("multiply", {"A": (3_000, TIMIT_D), "B": (TIMIT_D, TIMIT_C)}),
+    ("gram", {"A": (60_000, 4_000)}),
+    ("transpose", {"A": (1_000, 300)}),
+    ("add", {"A": (700, 500), "B": (700, 500)}),
+]
+WARM_CHAIN_N, WARM_CHAIN_STAGES = 19, 3
+# the warmup grid: under the default bucket grid the mix's single ops land
+# in multiply (4,096 x 512) @ (512 x 256) and transpose and add at 1,024 x
+# 512, all inside it; the gram's 60,000 rows lie beyond the bucket grid
+# and pass unpadded, so it is warmed, with the chain, from the executable
+# index the cold engine wrote
+WARM_GRID = (256, 512, 1024, 4096)
+# tests/test_compilecache.py's tolerances (1e-4 for a bucketed op against
+# the reference, 1e-3 for the 3-stage chain), here against float64 and
+# with atol relative to the result's largest entry
+WARM_RTOL = {"single": 1e-4, "chain3": 1e-3}
+
+
+def _warm_mix_data(seed: int = 31) -> tuple:
+    rng = np.random.default_rng(seed)
+    arrays = {(routine, name): rng.standard_normal(shape, dtype=np.float32)
+              for routine, shapes in WARM_MIX
+              for name, shape in shapes.items()}
+    chain = rng.standard_normal((WARM_CHAIN_N, WARM_CHAIN_N),
+                                dtype=np.float32) / np.float32(4.0)
+    return arrays, chain
+
+
+def _warm_mix_want(arrays, chain) -> dict:
+    """The mix's results in float64, on the card."""
+    import torch
+
+    def on_card(a):
+        return torch.from_numpy(a).to(DEVICE, torch.float64)
+    a = {k: on_card(v) for k, v in arrays.items()}
+    x = c = on_card(chain)
+    for _ in range(WARM_CHAIN_STAGES):
+        x = x @ c
+    g = a[("gram", "A")]
+    return {"multiply": a[("multiply", "A")] @ a[("multiply", "B")],
+            "gram": g.T @ g, "transpose": a[("transpose", "A")].T,
+            "add": a[("add", "A")] + a[("add", "B")], "chain3": x}
+
+
+def _send_mix(ac, arrays, chain) -> dict:
+    handles = {routine: {name: ac.send_matrix(arrays[(routine, name)],
+                                              dedup=False)
+                         for name in shapes}
+               for routine, shapes in WARM_MIX}
+    handles["chain3"] = ac.send_matrix(chain, dedup=False)
+    return handles
+
+
+# Over TCP a client cannot pause the engine's scheduler, and a worker that
+# picks up a chain's head at once runs it alone. There the chain's head
+# waits on a CG solve of WARM_CG_ITERS host-synchronised iterations (not
+# fusible) while its three multiplies arrive, so the engine claims them as
+# one chain in both server processes; its input is then W (19 x 19).
+WARM_CG_ROWS, WARM_CG_ITERS = 4_096, 200
+
+
+def _mix_once(ac, handles, over_tcp: bool = False) -> tuple:
+    """Each mix item once, timed on the host clock to its fetched result;
+    returns (seconds, results) by item, and W when ``over_tcp``."""
+    seconds, outs = {}, {}
+    for routine, _ in WARM_MIX:
+        t0 = time.perf_counter()
+        res = ac.call("elemental", routine, **handles[routine])
+        [out] = [v for v in res.values() if hasattr(v, "shape")]
+        outs[routine] = ac.wrap(out).to_numpy()
+        seconds[routine] = time.perf_counter() - t0
+    el = ac.library("elemental")
+    al = handles["chain3"]
+    t0 = time.perf_counter()
+    if over_tcp:
+        x = w = ac.library("skylark").cg_solve(
+            X=handles["cg"][0], Y=handles["cg"][1], lam=1e-3,
+            max_iters=WARM_CG_ITERS, tol=0.0)
+    else:
+        ac.engine.scheduler.pause()
+        x = al
+    for _ in range(WARM_CHAIN_STAGES):
+        x = el.multiply(A=x, B=al)
+    if not over_tcp:
+        ac.engine.scheduler.resume()
+    outs["chain3"] = x.to_numpy()
+    seconds["chain3"] = time.perf_counter() - t0
+    return seconds, outs, (w.to_numpy() if over_tcp else None)
+
+
+def _check_mix(outs, want, what) -> dict:
+    """Raise unless every result is within its tolerance of float64;
+    returns the max abs errors."""
+    import torch
+    errs = {}
+    for k, w in want.items():
+        got = torch.from_numpy(outs[k]).to(DEVICE, torch.float64)
+        tol = WARM_RTOL["chain3" if k == "chain3" else "single"]
+        err = (got - w).abs()
+        limit = tol * float(w.abs().max()) + tol * w.abs()
+        if tuple(got.shape) != tuple(w.shape) or \
+                not bool(torch.isfinite(got).all()) or \
+                bool((err > limit).any()):
+            raise AssertionError(f"{what} {k}: {tuple(got.shape)}, max abs "
+                                 f"err {float(err.max()):.3e} over rtol "
+                                 f"{tol}")
+        errs[k] = float(err.max())
+    return errs
+
+
+def _warm_server_run(cache_dir, arrays, chain, want, run) -> dict:
+    """One server process with --warmup on ``cache_dir``: the mix over
+    TCP, its compile accounting read over the wire, then SIGINT."""
+    import re
+    import torch
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import elemental, skylark
+    rng = np.random.default_rng(37)
+    cg = [rng.standard_normal((WARM_CG_ROWS, WARM_CHAIN_N),
+                              dtype=np.float32) for _ in range(2)]
+    proc, address, seen, start_s = _start_server(
+        "--warmup", "--compile-cache-dir", cache_dir)
+    try:
+        warm_line = next(ln for ln in seen if ln.startswith("warmup:"))
+        replayed = int(re.search(r"(\d+) replayed", warm_line).group(1))
+        with AlchemistContext(address=address) as ac:
+            ac.register_library("elemental", elemental)
+            ac.register_library("skylark", skylark)
+            handles = _send_mix(ac, arrays, chain)
+            handles["cg"] = [ac.send_matrix(a, dedup=False) for a in cg]
+            first, outs, w = _mix_once(ac, handles, over_tcp=True)
+            stats = ac.call("_engine", "compile_stats")["engine"]
+            later, _, _ = _mix_once(ac, handles, over_tcp=True)
+    finally:
+        rc = _stop_server(proc)
+    x = torch.from_numpy(w).to(DEVICE, torch.float64)
+    c64 = torch.from_numpy(chain).to(DEVICE, torch.float64)
+    for _ in range(WARM_CHAIN_STAGES):
+        x = x @ c64
+    errs = _check_mix(outs, {**want, "chain3": x},
+                      f"server process {run}")
+    if rc != 0:
+        raise AssertionError(f"server process {run} exited with {rc}")
+    return {"start_s": start_s, "warmup_line": warm_line,
+            "replayed": replayed, "first_call_s": first,
+            "first_call_total_s": sum(first.values()),
+            "later_call_s": later,
+            "request_compiles": stats["request_compiles"],
+            "bucketed_request_compiles":
+                stats["bucketed_request_compiles"],
+            "executable_index": stats["executable_index"],
+            "max_abs_err_vs_float64": errs}
+
+
+def phase_warmup(counters, fused) -> dict:
+    """The compile cache on the card. (b) a cold engine serves an
+    odd-shaped mix (first call and a later call of each item), writing the
+    executable index in a temporary compile cache dir; (a) a fresh engine
+    on that dir warms up at WARM_GRID (the index, then the catalog) and
+    (b) serves the same mix with no request-path compile and no new
+    capture; (c) the warm restart through the deployed form, two server
+    processes on one dir; (d) phase_fused's gram chain on the 65,536 x
+    8,096 field with bucketing on: padded to 8,192 columns, a large slot.
+    Returns the launch counts of the phase."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import AlchemistContext, AlchemistEngine
+    from repro_torch.core.libraries import elemental
+    t_phase = time.perf_counter()
+    arrays, chain = _warm_mix_data()
+    want = _warm_mix_want(arrays, chain)
+    for c in counters.values():
+        c.reset()
+    cache_dir = tempfile.mkdtemp(prefix="chip-smoke-ccache-")
+    server_dir = tempfile.mkdtemp(prefix="chip-smoke-server-ccache-")
+    try:
+        def engine_on(cdir):
+            eng = AlchemistEngine(device=DEVICE, cache_entries=0,
+                                  compile_cache_dir=cdir)
+            eng.load_library("elemental", elemental)
+            return eng, eng.backends["torch"]
+
+        # (b) cold: each first call builds its program on the request path
+        engine, backend = engine_on(cache_dir)
+        ac = AlchemistContext(engine=engine)
+        handles = _send_mix(ac, arrays, chain)
+        cold_first, outs, _ = _mix_once(ac, handles)
+        cold_errs = _check_mix(outs, want, "cold first call")
+        cold_later, outs, _ = _mix_once(ac, handles)
+        _check_mix(outs, want, "cold later call")
+        cold_log = engine.compile_log.stats()
+        cold_capture_s = backend.capture_seconds
+        ac.stop()
+        engine.shutdown()
+        if cold_log["request_compiles"] < len(WARM_MIX) + 1:
+            raise AssertionError(f"the cold engine compiled less than the "
+                                 f"mix: {cold_log}")
+
+        # (a) warmup on a fresh engine over the cold engine's index
+        engine, backend = engine_on(cache_dir)
+        torch.cuda.current_stream().synchronize()
+        allocated = torch.cuda.memory_allocated()
+        warm = engine.warmup(grid=WARM_GRID)
+        torch.cuda.current_stream().synchronize()
+        warm_rec = {
+            "grid": list(WARM_GRID), **warm,
+            "programs": backend.program_cache_info()["programs"],
+            "graphs": backend.graphs(),
+            "capture_s": backend.capture_seconds,
+            "capture_failures": backend.capture_failures,
+            "held_bytes_counted": backend.held_bytes(),
+            "allocated_growth_bytes":
+                torch.cuda.memory_allocated() - allocated}
+        if warm["skipped"] or warm["replayed"] < len(WARM_MIX) + 1 or \
+                backend.capture_failures:
+            raise AssertionError(f"warmup: {warm_rec}")
+        # (b) warm: the same mix, nothing built on the request path
+        captured, graphs = backend.capture_seconds, backend.graphs()
+        ac = AlchemistContext(engine=engine)
+        handles = _send_mix(ac, arrays, chain)
+        warm_first, outs, _ = _mix_once(ac, handles)
+        warm_errs = _check_mix(outs, want, "warm first call")
+        warm_log = engine.compile_log.stats()
+        after = (backend.capture_seconds, backend.graphs(),
+                 backend.capture_failures)
+        ac.stop()
+        engine.shutdown()
+        if warm_log["request_compiles"] or \
+                warm_log["bucketed_request_compiles"] or \
+                after != (captured, graphs, 0):
+            raise AssertionError(
+                f"the warmed engine built on the request path: {warm_log}, "
+                f"capture s {captured} -> {after[0]}, graphs {graphs} -> "
+                f"{after[1]}, capture failures {after[2]}")
+
+        # what warmup at the default grid leaves held
+        engine = AlchemistEngine(device=DEVICE, cache_entries=0)
+        default = engine.warmup()
+        default_held = engine.backends["torch"].held_bytes()
+        engine.shutdown()
+
+        # (c) the warm restart across two server processes on one dir
+        servers = [_warm_server_run(server_dir, arrays, chain, want, run)
+                   for run in range(2)]
+        if servers[1]["replayed"] < len(WARM_MIX) + 1 or \
+                servers[1]["request_compiles"] or \
+                servers[1]["bucketed_request_compiles"]:
+            raise AssertionError(f"the restarted server built on the "
+                                 f"request path: {servers[1]}")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        shutil.rmtree(server_dir, ignore_errors=True)
+
+    # (d) bucketing at the ocean width: the padded field is a large slot,
+    # a fresh tensor at every run, captured per address
+    engine = AlchemistEngine(device=DEVICE, cache_entries=0)
+    engine.load_library("elemental", elemental)
+    backend = engine.backends["torch"]
+    ac = AlchemistContext(engine=engine)
+    al = ac.send_matrix(fused["field"], dedup=False)
+    bucketed = []
+    for run in range(3):
+        graphs = backend.graphs()
+        seconds, outs, delta = _burst_gram_chain(engine, ac, al)
+        _one_task(delta, 4, f"bucketed gram chain run {run + 1}")
+        bucketed.append({"seconds": seconds,
+                         "engine_s": delta["engine_s"],
+                         "captured": backend.graphs() > graphs})
+    ac.configure(bucketing=False)
+    _burst_gram_chain(engine, ac, al)                  # its capture
+    exact_s, exact, delta = _burst_gram_chain(engine, ac, al)
+    _one_task(delta, 4, "unbucketed gram chain")
+    names = ("G", "Gt", "S", "P")
+    bits = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, outs, exact)}
+    errs = {n: close("gram", a, b, "float32")
+            for n, a, b in zip(names, outs, exact)}
+    ocean = {"rows": FUSED_ROWS, "d": OCEAN_D,
+             "padded_d": engine.bucket_policy.bucket_dim(OCEAN_D),
+             "runs": bucketed,
+             "captures": sum(r["captured"] for r in bucketed),
+             "graphs": backend.graphs(),
+             "capture_failures": backend.capture_failures,
+             "unbucketed_replay_s": exact_s,
+             "phase_fused_unbucketed_replay_median_s": fused["replay_s"],
+             "bits_match_unbucketed": bits,
+             "max_abs_err_vs_unbucketed": errs}
+    del outs, exact
+    al.free()
+    ac.stop()
+    engine.shutdown()
+    if ocean["capture_failures"]:
+        raise AssertionError(f"bucketed ocean chain: {ocean}")
+    launches = {k: c.value for k, c in counters.items()}
+    emit({"phase": "warmup", "mix": {r: {k: list(v) for k, v in sh.items()}
+                                     for r, sh in WARM_MIX},
+          "chain": [WARM_CHAIN_N, WARM_CHAIN_STAGES],
+          "warmup": warm_rec,
+          "cold_first_call_s": cold_first, "cold_later_call_s": cold_later,
+          "warm_first_call_s": warm_first,
+          "cold_first_call_total_s": sum(cold_first.values()),
+          "warm_first_call_total_s": sum(warm_first.values()),
+          "first_call_speedup": sum(cold_first.values())
+          / sum(warm_first.values()),
+          "cold_compile_log": cold_log, "cold_capture_s": cold_capture_s,
+          "warm_compile_log": warm_log,
+          "cold_max_abs_err_vs_float64": cold_errs,
+          "warm_max_abs_err_vs_float64": warm_errs,
+          "default_grid_warmup": {**default,
+                                  "held_bytes_counted": default_held},
+          "servers": servers, "ocean_bucketed": ocean,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -1245,22 +1597,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_server_cli(want_small_w) -> dict:
-    """``python -m repro_torch.core.server --device cuda`` as its own
-    process, as the README deploys it: wait for its startup line, drive
-    small_cg_check's problem and its fetch through it, compare W with the
-    in-process server's, then interrupt it and check that it exits 0."""
-    from repro_torch.core import AlchemistContext
-    from repro_torch.core.libraries import skylark
-    t_phase = time.perf_counter()
+def _start_server(*args) -> tuple:
+    """``python -m repro_torch.core.server --device cuda`` with ``args``,
+    as its own process, as the README deploys it. Waits for its startup
+    line; returns (the process, its address, the lines it printed, the
+    seconds to its address). The caller stops it (``_stop_server``)."""
+    t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src")] + [p for p in
                                os.environ.get("PYTHONPATH", "").split(
                                    os.pathsep) if p]))
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.core.server", "--device",
-         DEVICE, "--port", str(_free_port())], env=env, cwd=str(REPO),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         DEVICE, "--port", str(_free_port()), *args], env=env,
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     lines: "queue.Queue" = queue.Queue()
     seen: list = []
 
@@ -1287,16 +1638,41 @@ def phase_server_cli(want_small_w) -> dict:
             seen.append(line.rstrip())
             if "serving on" in line:
                 address = line.split("serving on ")[1].split()[0]
-        start_s = time.perf_counter() - t_phase
-        with AlchemistContext(address=address) as ac:
-            ac.register_library("skylark", skylark)
-            err, w = small_cg_check(ac)
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=120)
+    except BaseException:
+        _stop_server(proc, interrupt=False)
+        raise
+    return proc, address, seen, time.perf_counter() - t0
+
+
+def _stop_server(proc, interrupt: bool = True) -> Optional[int]:
+    """Interrupt the server and return its exit code (killed when it does
+    not stop in two minutes, or when ``interrupt`` is false: None)."""
+    rc = None
+    try:
+        if interrupt and proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    return rc
+
+
+def phase_server_cli(want_small_w) -> dict:
+    """The server as its own process: drive small_cg_check's problem and
+    its fetch through it, compare W with the in-process server's, then
+    interrupt it and check that it exits 0."""
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import skylark
+    t_phase = time.perf_counter()
+    proc, address, seen, start_s = _start_server()
+    try:
+        with AlchemistContext(address=address) as ac:
+            ac.register_library("skylark", skylark)
+            err, w = small_cg_check(ac)
+    finally:
+        rc = _stop_server(proc)
     same_bits = np.array_equal(w.view(np.uint32),
                                want_small_w.view(np.uint32))
     diff = float(np.abs(w - want_small_w).max())
@@ -1445,8 +1821,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # a burst chain as one task, replayed from one CUDA graph
-    for k, v in phase_fused(counters).items():
+    fused_launches, fused = phase_fused(counters)
+    for k, v in fused_launches.items():
         launches[k] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the compile cache: warmup, the warm restart, bucketing
+    for k, v in phase_warmup(counters, fused).items():
+        launches[k] += v
+    del fused
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -27,41 +27,61 @@ they draw (the JAX backend's threefry draws agree in distribution only).
 the engine claims a dependency chain a lazy client submitted in one
 burst (``scheduler.claim_chain``, ``engine._run_fused``), the whole
 multi-step plan runs as one task, its intermediates never leaving the
-engine. :meth:`TorchBackend.compile` decides from the plan alone, before
-any launch, how it runs:
+engine.
 
-* on a CUDA device, a plan whose every step is capture-safe
-  (:data:`CAPTURE_SAFE`: ``multiply``, ``add``, ``transpose``, ``gram``,
-  ``replicate_cols``) becomes one **CUDA graph**, captured on first use
-  and replayed afterwards: the port's counterpart of the JAX backend's
-  single ``jax.jit`` program. Captured programs are held in a bounded
-  LRU keyed by the plan's signature and each input's shape, stride,
-  dtype, device and address (:func:`program_key`);
-* capture is refused for a plan holding any other step, which then runs
-  eagerly, still as one task: ``random_matrix`` draws on the host and
-  hands back a CPU tensor (a copy from pageable memory cannot be
-  captured), and ``qr`` and ``gram_svd`` (``torch.linalg.qr``,
-  ``torch.linalg.eigh``) check LAPACK's info on the host, which
-  synchronises. All three stay ``fusible``, so the catalogs do not
-  change;
-* on the CPU every plan runs eagerly, step by step, in one task.
+**The program cache** (``supports_aot = True``). The engine compiles
+every fused chain and every bucketed single op through
+:meth:`TorchBackend.get_or_compile`, keyed by ``plan.signature()`` (the
+plan's structure, scalars and ``input_specs``: shapes and dtypes) in one
+bounded LRU (``max_programs``), and pads and crops bucketed operands
+with :meth:`~TorchBackend.pad_to` and :meth:`~TorchBackend.crop_to`. How
+a program is built is decided from the plan and its specs alone, before
+any request, by the size of each input slot: a slot is **small** up to
+:data:`~repro_torch.core.compilecache.SMALL_SLOT_BYTES` (the largest
+operand catalog warmup makes, the largest bucket squared in fp32), else
+**large**, and a large slot is read in place, never copied.
+
+* a single-step plan is an **eager program** that holds no buffers.
+  Compiling it runs it once at the spec's shapes on zero tensors (on the
+  backend's side stream on a card), which loads the kernels' modules,
+  settles cuBLAS and grows the allocator before any request does;
+* a multi-step plan that is :meth:`~TorchBackend.capturable`, on a card,
+  with every slot small, gets **static input buffers** at the spec's
+  shapes and is captured into one **CUDA graph** reading them (an eager
+  warm-up run first, then the capture, on the side stream). ``aot`` is
+  true: warmup and a warm restart capture it before traffic, and a
+  replay copies its inputs into the buffers first, so a padded input (a
+  fresh tensor at every call) replays too;
+* a capturable plan on a card with a large slot (or no specs) keeps
+  one capture per input address: its program captures on first use for
+  each (shape, stride, dtype, address) of its inputs (:func:`program_key`,
+  the same LRU), and its ``aot`` is false, since nothing can be captured
+  without the tensor;
+* every other plan (``qr``, ``gram_svd`` and ``random_matrix`` refuse
+  capture: the first hands back a CPU tensor drawn on the host, the
+  others check LAPACK's info on the host), and every plan on the CPU, is
+  an eager program: the same key, LRU and accounting, never a graph,
+  run once at the spec's shapes when its slots are small. ``aot`` then
+  means "built from its specs before any request".
 
 A capture runs on a side stream in ``thread_local`` mode, so other
 workers go on launching, copying, allocating and synchronising their
 own streams meanwhile. Two things of theirs still collide with it: a
 device-wide ``torch.cuda.synchronize`` (it fails, and invalidates the
-capture; the engine waits on its worker's stream instead), and a draw
-from the default CUDA generator (PyTorch registers that generator with
-every capture); the engine's routines draw on the host.
+capture; the engine waits on its worker's stream instead, and nothing
+on the compile path synchronises more than a stream or an event), and a
+draw from the default CUDA generator (PyTorch registers that generator
+with every capture); the engine's routines draw on the host. A capture
+that fails counts in ``capture_failures`` and nothing is kept.
 
-There is no ``get_or_compile``, ``pad_to`` or AOT warmup: single ops run
-eagerly, unbucketed. Host-loop drivers (Lanczos SVD, CG, NMF) are
-reverse-communication loops around device products, as in the JAX
-backend, and are never fused.
+Host-loop solvers (Lanczos SVD, CG, NMF) are reverse-communication
+loops around device products, as in the JAX backend, and are never
+fused.
 """
 from __future__ import annotations
 
 import collections
+import math
 import threading
 import time
 from typing import Optional
@@ -70,6 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import locktrace
+from repro_torch.core import compilecache
 from repro_torch.core.backends import base
 from repro_torch.core.backends.base import REPLICATED, ROWBLOCK
 from repro_torch.core.backends.reference import (
@@ -84,8 +105,8 @@ from repro_torch.kernels.rf_map import ops as rf_ops
 
 _DENSE = (ROWBLOCK, REPLICATED)
 
-#: default bound on captured programs held live (LRU), as the JAX backend
-#: bounds its compiled programs
+#: default bound on programs held live (LRU), as the JAX backend bounds
+#: its compiled programs
 DEFAULT_MAX_PROGRAMS = 128
 
 #: the routines whose implementation here may be captured into a CUDA
@@ -95,15 +116,39 @@ CAPTURE_SAFE = frozenset(("elemental", r) for r in (
     "multiply", "add", "transpose", "gram", "replicate_cols"))
 
 
+def spec_dtype(name: str) -> torch.dtype:
+    """The torch dtype an ``input_specs`` dtype string names
+    (``"float32"``, as the engine and the JAX package write it)."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r} in input_specs")
+    return dt
+
+
+def slot_bytes(shape, dtype: str) -> int:
+    """Bytes of one input slot of ``shape`` and ``dtype``."""
+    return math.prod(int(d) for d in shape) * spec_dtype(dtype).itemsize
+
+
+def small_slots(plan: base.ExecutionPlan) -> bool:
+    """Whether the plan has specs and every input slot is small (at most
+    :data:`compilecache.SMALL_SLOT_BYTES`): what a program may copy into
+    buffers of its own or run on zeros at compile time. A large slot is
+    read in place."""
+    return plan.input_specs is not None and all(
+        slot_bytes(shape, dt) <= compilecache.SMALL_SLOT_BYTES
+        for shape, dt in plan.input_specs.values())
+
+
 def program_key(plan: base.ExecutionPlan,
                 inputs: dict) -> Optional[tuple]:
-    """The key of a plan's captured program: its signature plus, for each
-    input, its shape, stride, dtype, device and address. A CUDA graph
-    reads its inputs where they lay at capture, without copying them into
-    buffers of its own (a resident matrix may be half the card), so a
-    replay is right for any tensor at that address with that shape,
-    stride and dtype, and a new address is a new capture. ``None`` when
-    an argument is unhashable."""
+    """The key of a capture made for one set of input addresses: the
+    plan's signature plus, for each input, its shape, stride, dtype,
+    device and address. A CUDA graph reads its inputs where they lay at
+    capture, so a replay is right for any tensor at that address with
+    that shape, stride and dtype, and a new address is a new capture.
+    Programs with a large slot key their captures so (their inputs are
+    never copied). ``None`` when an argument is unhashable."""
     sig = plan.signature()
     if sig is None:
         return None
@@ -114,7 +159,7 @@ def program_key(plan: base.ExecutionPlan,
 
 def _interpret(plan: base.ExecutionPlan, inputs: dict) -> list[dict]:
     """Every step of the plan in order, nothing between them: the body a
-    capture records."""
+    capture records and a compile-time run executes."""
     outs: list[dict] = []
     for step in plan.steps:
         outs.append(step.impl.fn(**base.resolve_step_args(step, outs,
@@ -122,30 +167,111 @@ def _interpret(plan: base.ExecutionPlan, inputs: dict) -> list[dict]:
     return outs
 
 
+def _tensor_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``."""
+    seen: dict[int, int] = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+class _Eager:
+    """An eager program: the plan's steps on the current stream, holding
+    nothing on the device."""
+
+    graph = None
+    nbytes = 0
+
+    def __init__(self, run):
+        self._run = run
+
+    def __call__(self, inputs: dict) -> list[dict]:
+        return self._run({k: v if isinstance(v, torch.Tensor)
+                          else torch.as_tensor(v)
+                          for k, v in inputs.items()})
+
+    def release(self) -> None:
+        pass
+
+
+class _ByAddress:
+    """A capturable program with a large slot (or no specs): one capture
+    per input address, each an entry of the backend's LRU under
+    :func:`program_key`; inputs off the card run eagerly. Holds nothing
+    itself."""
+
+    graph = None
+    nbytes = 0
+
+    def __init__(self, backend: "TorchBackend", plan: base.ExecutionPlan,
+                 eager):
+        self._backend, self._plan, self._eager = backend, plan, eager
+
+    def __call__(self, inputs: dict) -> list[dict]:
+        if not inputs or not all(isinstance(t, torch.Tensor) and t.is_cuda
+                                 for t in inputs.values()):
+            return self._eager(inputs)
+        return self._backend._run_graph(self._plan, self._eager, inputs)
+
+    def release(self) -> None:
+        pass
+
+
 class _Program:
     """One captured plan: its CUDA graph, the outputs the graph writes at
-    every replay (in the graph's private memory pool), and the kernel
-    launches its capture recorded."""
+    every replay (in the graph's private memory pool), the kernel launches
+    its capture recorded and, for a program with static input buffers,
+    the buffers the graph reads (``buffers``; empty when the graph reads
+    its inputs where they lay at capture)."""
 
-    def __init__(self, graph, outs: list[dict], launches: dict):
+    def __init__(self, graph, outs: list[dict], launches: dict,
+                 plan: Optional[base.ExecutionPlan] = None,
+                 buffers: Optional[dict] = None, ready=None):
         self.graph = graph
         self.outs = outs
         self.launches = launches
+        self.plan = plan
+        self.buffers = buffers or {}
         self.lock = threading.Lock()
-        self.done = None        # event after the last replay's copies
+        self.done = ready       # event after the last replay's copies
 
-    def replay(self) -> Optional[list[dict]]:
-        """Replay on the current stream and hand out copies of the
-        outputs: the next replay overwrites the graph's own. The lock keeps
-        a second worker's replay from overwriting them before they are
-        copied; ``done`` orders a replay on another stream after the last
-        copies. ``None`` once the program was released."""
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the program holds: its buffers and outputs."""
+        with self.lock:
+            if self.graph is None:
+                return 0
+            return _tensor_bytes([*self.buffers.values()] +
+                                 [v for step in self.outs
+                                  for v in step.values()])
+
+    def __call__(self, inputs: dict) -> list[dict]:
+        """Run a program with static buffers on ``inputs``."""
+        outs = self.replay(inputs)
+        if outs is None:
+            # released by the LRU since the engine looked it up: this call
+            # runs its steps on the current stream
+            return _interpret(self.plan, inputs)
+        return outs
+
+    def replay(self, inputs: Optional[dict] = None
+               ) -> Optional[list[dict]]:
+        """Copy ``inputs`` into the buffers, replay on the current stream
+        and hand out copies of the outputs: the next replay overwrites the
+        graph's own. The lock keeps a second worker from overwriting the
+        buffers or the outputs before they are read; ``done`` orders a
+        replay on another stream after the last one's copies. ``None``
+        once the program was released."""
         with self.lock:
             if self.graph is None:
                 return None
             stream = torch.cuda.current_stream()
             if self.done is not None:
                 stream.wait_event(self.done)
+            for slot, buf in self.buffers.items():
+                buf.copy_(inputs[slot])
             self.graph.replay()
             outs = [{k: v.clone(memory_format=torch.contiguous_format)
                      if isinstance(v, torch.Tensor) else v
@@ -158,7 +284,8 @@ class _Program:
             return outs
 
     def release(self) -> None:
-        """Drop the graph and its outputs, returning its pool."""
+        """Drop the graph, its outputs and its buffers, returning its
+        pool and their memory."""
         with self.lock:
             if self.graph is None:
                 return
@@ -166,34 +293,45 @@ class _Program:
                 self.done.synchronize()
             self.graph.reset()
             self.graph = self.outs = None
+            self.buffers = {}
 
 
 class TorchBackend(base.ExecutionBackend):
-    """PyTorch execution on the engine's device; a burst chain runs as one
-    task, replayed from a CUDA graph on a card where every step allows
-    capture.
+    """PyTorch execution on the engine's device (``device``, set by the
+    engine); a burst chain runs as one task, replayed from a CUDA graph on
+    a card where every step allows capture.
 
-    Captured programs are held in a bounded LRU (``max_programs``);
-    ``capture_failures`` counts captures that failed on the card (the
-    call is then answered by the eager run before it, and nothing is
-    kept), which no run should see."""
+    Programs are held in a bounded LRU (``max_programs``) keyed by plan
+    signature (see the module's docstring for how each is built).
+    Beside :meth:`program_cache_info`: ``capture_failures`` counts
+    captures that failed on the card (nothing is kept; on the request
+    path the call is answered eagerly), which no run should see;
+    ``capture_seconds`` the seconds of the captures kept; :meth:`graphs`
+    the captured graphs held and :meth:`held_bytes` the device bytes the
+    programs hold."""
 
     name = "torch"
     supports_fusion = True
+    #: programs are built from ``input_specs`` before any request (run
+    #: once at those shapes, or captured): what warmup and bucketing key
+    #: off
+    supports_aot = True
 
-    def __init__(self):
+    def __init__(self, max_programs: int = DEFAULT_MAX_PROGRAMS):
         super().__init__()
-        self._programs: "collections.OrderedDict[tuple, _Program]" = \
+        self._programs: "collections.OrderedDict[tuple, object]" = \
             collections.OrderedDict()
         self._programs_lock = locktrace.make_lock("backend.programs")
-        # one capture at a time, on this backend's side stream
+        # one build or capture at a time, on this backend's side stream
         self._capture_lock = threading.Lock()
         self._side_stream = None
+        #: the engine's device, where compile-time runs and buffers go
+        self.device = torch.device("cpu")
         #: bound on live programs (the engine's ``program_cache_size``)
-        self.max_programs = DEFAULT_MAX_PROGRAMS
+        self.max_programs = int(max_programs)
         #: programs dropped by the LRU bound since construction
         self.evictions = 0
-        #: captures that raised on the card (each answered eagerly)
+        #: captures that raised on the card (nothing kept)
         self.capture_failures = 0
         #: seconds spent capturing programs that were kept
         self.capture_seconds = 0.0
@@ -206,7 +344,35 @@ class TorchBackend(base.ExecutionBackend):
         return isinstance(value, (torch.Tensor, np.ndarray)) and \
             value.ndim >= 1
 
-    # ---- chain fusion ---------------------------------------------------
+    # ---- bucket pad/unpad (the shape-collapse wrappers) -----------------
+    def pad_to(self, array, shape) -> torch.Tensor:
+        """Zero-pad an operand up to its bucket shape (trailing edge of
+        every dimension), as the JAX backend's ``pad_to``: for the
+        bucketable linear routines the logical block of the padded result
+        equals the unpadded result, and pad regions stay zero through
+        chains. A fresh tensor whenever it pads."""
+        arr = self.to_native(array)
+        target = tuple(int(d) for d in shape)
+        if tuple(arr.shape) == target:
+            return arr
+        if len(target) != arr.ndim or \
+                any(t < s for t, s in zip(target, arr.shape)):
+            raise ValueError(
+                f"cannot pad {tuple(arr.shape)} up to {target}")
+        out = arr.new_zeros(target)
+        out[tuple(slice(0, s) for s in arr.shape)] = arr
+        return out
+
+    def crop_to(self, array, shape):
+        """Slice a padded program output back to its logical shape, as a
+        tensor of its own (a view would keep the padded one alive)."""
+        target = tuple(int(d) for d in shape)
+        if tuple(array.shape) == target:
+            return array
+        return self.to_native(array)[tuple(slice(0, d) for d in target)] \
+            .clone(memory_format=torch.contiguous_format)
+
+    # ---- chain fusion and the program cache -----------------------------
     def capturable(self, plan: base.ExecutionPlan) -> bool:
         """Whether ``plan`` runs as one CUDA graph on a card: two or more
         steps, each this backend's own implementation of a
@@ -220,20 +386,108 @@ class TorchBackend(base.ExecutionBackend):
 
     def compile(self, plan: base.ExecutionPlan):
         """A one-step plan runs its implementation directly; a multi-step
-        plan runs eagerly in one task, unless it is :meth:`capturable` and
-        its inputs lie on a card: then it replays its captured CUDA graph,
-        captured on first use."""
-        eager = super().compile(plan)
-        if not self.capturable(plan):
-            return eager
+        plan is the cached program :meth:`get_or_compile` builds."""
+        if len(plan.steps) == 1:
+            return super().compile(plan)
+        return self.get_or_compile(plan)[0]
 
-        def run(inputs: dict) -> list[dict]:
-            if not inputs or not all(isinstance(t, torch.Tensor)
-                                     and t.is_cuda
-                                     for t in inputs.values()):
-                return eager(inputs)
-            return self._run_graph(plan, eager, inputs)
-        return run
+    def get_or_compile(self, plan: base.ExecutionPlan
+                       ) -> tuple[object, dict]:
+        """The instrumented compile path: ``(program, info)``, where info
+        says whether the program came from the cache (``cached``), the
+        seconds its build took (``compile_s``: its compile-time run or its
+        warm-up and capture), whether it was built from the plan's specs
+        before any request (``aot``) and how many programs the LRU dropped
+        for it (``evicted``). Keyed by ``plan.signature()``."""
+        sig = plan.signature()
+        hit = {"cached": True, "compile_s": 0.0, "aot": False, "evicted": 0}
+        program = self._cache_get(sig) if sig is not None else None
+        if program is not None:
+            return program, hit
+        with self._capture_lock:
+            program = self._cache_get(sig) if sig is not None else None
+            if program is not None:
+                return program, hit
+            t0 = time.perf_counter()
+            program, aot, keep = self._build(plan)
+            compile_s = time.perf_counter() - t0
+        evicted = self._cache_put(sig, program) \
+            if sig is not None and keep else 0
+        return program, {"cached": False, "compile_s": compile_s,
+                         "aot": aot, "evicted": evicted}
+
+    def _build(self, plan: base.ExecutionPlan) -> tuple[object, bool, bool]:
+        """Build the program for ``plan`` (the rule in the module's
+        docstring), under the capture lock: ``(program, aot, keep)``."""
+        eager = super().compile(plan)
+        small = small_slots(plan)
+        if self.device.type == "cuda" and self.capturable(plan):
+            if not small:
+                return _ByAddress(self, plan, eager), False, True
+            program = self._capture_static(plan)
+            if program is None:
+                return _Eager(eager), False, False
+            return program, True, True
+        if small:
+            self._run_on_zeros(plan)
+        return _Eager(eager), plan.input_specs is not None, True
+
+    def _side(self) -> "torch.cuda.Stream":
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
+
+    def _zeros(self, plan: base.ExecutionPlan) -> dict:
+        return {slot: torch.zeros(tuple(shape), dtype=spec_dtype(dt),
+                                  device=self.device)
+                for slot, (shape, dt) in plan.input_specs.items()}
+
+    def _run_on_zeros(self, plan: base.ExecutionPlan) -> None:
+        """Run the plan once at its spec's shapes on zero tensors (on the
+        side stream on a card, waiting for that stream only)."""
+        if self.device.type != "cuda":
+            _interpret(plan, self._zeros(plan))
+            return
+        side = self._side()
+        with torch.cuda.stream(side):
+            _interpret(plan, self._zeros(plan))
+        side.synchronize()
+
+    def _capture_static(self, plan: base.ExecutionPlan
+                        ) -> Optional[_Program]:
+        """Static input buffers at the spec's shapes, an eager warm-up run
+        on them and the capture reading them, all on the side stream.
+        ``None`` when the capture fails (counted)."""
+        side = self._side()
+        with torch.cuda.stream(side):
+            buffers = self._zeros(plan)
+            _interpret(plan, buffers)
+        return self._record(plan, buffers, side, buffers=buffers)
+
+    def _record(self, plan, inputs: dict, side, buffers=None
+                ) -> Optional[_Program]:
+        """Capture ``plan`` on ``inputs`` on the side stream in
+        ``thread_local`` mode; ``None`` (and one more capture failure)
+        when the capture raises."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with kernel_device.capturing_launches() as launches, \
+                    torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static = _detached(_interpret(plan, inputs), inputs)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            self.capture_failures += 1
+            return None
+        ready = torch.cuda.Event()
+        ready.record(side)
+        side.synchronize()
+        self.capture_seconds += time.perf_counter() - t0
+        return _Program(graph, static, launches, plan=plan,
+                        buffers=buffers, ready=ready)
 
     def _run_graph(self, plan, eager, inputs: dict) -> list[dict]:
         key = program_key(plan, inputs)
@@ -250,10 +504,9 @@ class TorchBackend(base.ExecutionBackend):
     def _capture(self, key, plan, eager, inputs: dict) -> list[dict]:
         """Run the plan once eagerly on the side stream, which builds and
         loads the kernels' libraries and sets their launch attributes
-        outside the capture and answers this call, then capture it there.
-        ``thread_local`` capture lets other workers launch and synchronise
-        their own streams meanwhile without breaking it or being broken by
-        it (see the module's docstring for what still collides)."""
+        outside the capture and answers this call, then capture it there
+        on these very inputs (see the module's docstring for what may
+        run meanwhile)."""
         with self._capture_lock:
             if self._cache_get(key) is None:
                 return self._capture_locked(key, plan, eager, inputs)
@@ -261,54 +514,52 @@ class TorchBackend(base.ExecutionBackend):
         return self._run_graph(plan, eager, inputs)
 
     def _capture_locked(self, key, plan, eager, inputs: dict) -> list[dict]:
-        dev = next(iter(inputs.values())).device
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(dev)
-        side = self._side_stream
-        current = torch.cuda.current_stream(dev)
+        side = self._side()
+        current = torch.cuda.current_stream(side.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             outs = eager(inputs)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with kernel_device.capturing_launches() as launches, \
-                    torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    static = _detached(_interpret(plan, inputs), inputs)
-                finally:
-                    graph.capture_end()
-        except RuntimeError:
-            self.capture_failures += 1
-            static = None
+        program = self._record(plan, inputs, side)
         current.wait_stream(side)
         for step in outs:               # made on the side stream, used here
             for v in step.values():
                 if isinstance(v, torch.Tensor):
                     v.record_stream(current)
-        if static is not None:
-            self.capture_seconds += time.perf_counter() - t0
-            self._cache_put(key, _Program(graph, static, launches))
+        if program is not None:
+            self._cache_put(key, program)
         return outs
 
     # ---- program cache --------------------------------------------------
     def program_cache_info(self) -> dict:
-        """Live captured programs, their bound, lifetime evictions."""
+        """Live programs, their bound, lifetime evictions."""
         with self._programs_lock:
             return {"programs": len(self._programs),
                     "max_programs": self.max_programs,
                     "evictions": self.evictions}
 
-    def _cache_get(self, key) -> Optional[_Program]:
+    def graphs(self) -> int:
+        """Captured CUDA graphs among the live programs."""
+        with self._programs_lock:
+            programs = list(self._programs.values())
+        return sum(getattr(p, "graph", None) is not None for p in programs)
+
+    def held_bytes(self) -> int:
+        """Device bytes the live programs hold (static buffers and graph
+        outputs; the graphs' pools may reserve more)."""
+        with self._programs_lock:
+            programs = list(self._programs.values())
+        return sum(getattr(p, "nbytes", 0) for p in programs)
+
+    def _cache_get(self, key):
         with self._programs_lock:
             program = self._programs.get(key)
             if program is not None:
                 self._programs.move_to_end(key)
             return program
 
-    def _cache_put(self, key, program: _Program) -> None:
-        """Insert under the LRU bound, releasing what falls out of it."""
+    def _cache_put(self, key, program) -> int:
+        """Insert under the LRU bound, releasing what falls out of it;
+        returns how many programs were dropped."""
         dropped = []
         with self._programs_lock:
             self._programs[key] = program
@@ -318,9 +569,10 @@ class TorchBackend(base.ExecutionBackend):
             self.evictions += len(dropped)
         for p in dropped:
             p.release()
+        return len(dropped)
 
     def release(self) -> None:
-        """Release every captured program (engine shutdown)."""
+        """Release every program (engine shutdown)."""
         with self._programs_lock:
             dropped = list(self._programs.values())
             self._programs.clear()

@@ -28,12 +28,16 @@ the Alchemist engine):
   signatures* register themselves) for the bucket grid via
   ``jax.jit(...).lower(ShapeDtypeStruct...).compile()``, off the request
   path (``AlchemistEngine.warmup`` / ``warmup_on_load``): the first
-  tenant to submit a bucketed shape never sees a trace.
-* **Persistence** — :class:`ExecutableIndex` records every compiled
-  plan (structure + input specs), so a restarted engine can re-AOT
-  exactly the programs it served before. In the PyTorch port nothing
-  compiles yet (the torch backend runs eagerly), and the engine refuses
-  ``compile_cache_dir``; graph capture per signature is a later slice.
+  tenant to submit a bucketed shape never sees a trace. In the PyTorch
+  port "AOT" means built from the plan's specs before any request: a run
+  at the spec's shapes, or a CUDA graph captured on static input buffers
+  (``TorchBackend.get_or_compile``).
+* **Persistence** — :class:`ExecutableIndex` records every plan built
+  ahead of its request (structure + input specs), so a restarted engine
+  can rebuild exactly the programs it served before. In the PyTorch port
+  the index is all that persists: a program (a CUDA graph, or a run at
+  the spec's shapes) dies with its process, and a warm restart rebuilds
+  each in ``warmup`` before traffic. There is no disk cache of programs.
 
 ``costmodel.CompileLog`` is the observability surface: traces, AOT vs
 on-demand, bucket hit-rate, and compile seconds on/off the request path.
@@ -72,6 +76,12 @@ DEFAULT_WARMUP_GRID = (256, 1024)
 # Ceiling on enumerated shape combinations per routine during catalog
 # warmup (multiply is cubic in the grid length).
 WARMUP_COMBOS_PER_ROUTINE = 64
+
+# The largest operand catalog warmup can make, the largest default bucket
+# squared in fp32 (256 MiB): the torch backend copies an input slot up to
+# this size into a program's static buffers, or runs it on zeros at
+# compile time; a larger one is read in place.
+SMALL_SLOT_BYTES = max(DEFAULT_BUCKET_GRID) ** 2 * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,12 +260,12 @@ class ExecutableIndex:
     """The engine-level index over the persistent compilation cache.
 
     One JSON file per cache dir mapping signature keys to replayable
-    plan records. Every program the engine compiles — AOT *or* on the
-    request path — is recorded here, which is how hot chain signatures
-    "register" themselves: a restarted engine's warmup replays every
-    record (re-lowering hits JAX's disk cache, so the replay is cheap)
-    and tenant traffic then finds every previously-served program
-    already compiled.
+    plan records. Every program the engine builds ahead of execution —
+    in warmup *or* on the request path — is recorded here, which is how
+    hot chain signatures "register" themselves: a restarted engine's
+    warmup replays every record (rebuilding each program: a run at its
+    shapes, or a capture) and tenant traffic then finds every
+    previously-served program already built.
 
     Writes are atomic (tmp + rename), thread-lock-protected in process,
     and **merge-on-write** across processes: each save takes an exclusive

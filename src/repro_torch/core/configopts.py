@@ -60,8 +60,9 @@ OPTIONS: tuple[ConfigOption, ...] = (
     ConfigOption(
         name="cache_dir", kind="str", scope=SCOPE_ENGINE,
         cli="--compile-cache-dir",
-        doc="persistent compile cache directory (engine-wide by nature "
-            "— the JAX disk cache is process-global)"),
+        doc="compile cache directory (engine-wide): the index of the "
+            "program signatures served, rebuilt by a restarted engine's "
+            "warmup"),
     ConfigOption(
         name="weight", kind="number > 0", scope=SCOPE_SESSION,
         requires_qos=True,

@@ -205,8 +205,9 @@ class AlchemistContext:
         session in/out of operand shape bucketing; ``warmup=True`` (or a
         list of bucket sizes) AOT-compiles the bucketable catalog and
         indexed hot signatures right now, off the request path;
-        ``cache_dir`` (a persistent compile cache) is refused in this
-        slice of the PyTorch port. On a
+        ``cache_dir`` points the engine at a directory that keeps the
+        index of the signatures it serves, which a restarted engine's
+        warmup rebuilds (programs themselves are not kept). On a
         QoS-enabled engine (``AlchemistEngine(qos=True)``), ``weight``
         sets this session's fair-share weight (default 1.0; a weight-2
         tenant earns twice the dispatch share) and ``quotas`` overrides

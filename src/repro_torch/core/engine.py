@@ -248,8 +248,8 @@ class AlchemistEngine:
     is capped at that one device.
 
     Compile-latency subsystem (``core/compilecache.py``):
-    ``compile_cache_dir`` is refused in this slice of the port (the torch
-    backend compiles nothing); ``bucketing``/``bucket_grid``
+    ``compile_cache_dir`` keeps the executable index of the signatures
+    served (see :meth:`_set_cache_dir`); ``bucketing``/``bucket_grid``
     set the engine-default shape-bucket policy (sessions override via
     ``configure``); ``warmup_on_load`` AOT-compiles the bucketable
     catalog (and every indexed hot signature) in the background whenever
@@ -335,10 +335,12 @@ class AlchemistEngine:
         self.compile_cache_dir: Optional[str] = None
         self._exec_index: Optional[compilecache.ExecutableIndex] = None
         self._warmup_threads: list[threading.Thread] = []
-        if program_cache_size is not None:
-            for be in self.backends.values():
-                if hasattr(be, "max_programs"):
-                    be.max_programs = int(program_cache_size)
+        for be in self.backends.values():
+            if hasattr(be, "device"):
+                be.device = self.device     # where programs are built
+            if program_cache_size is not None and \
+                    hasattr(be, "max_programs"):
+                be.max_programs = int(program_cache_size)
         if compile_cache_dir:
             self._set_cache_dir(compile_cache_dir)
         # Session 0 is the always-present system namespace: in-process
@@ -727,11 +729,15 @@ class AlchemistEngine:
 
     # ---- compile-latency subsystem (shape buckets + AOT + persistence) ----
     def _set_cache_dir(self, cache_dir: str) -> None:
-        """A persistent compile cache is not in this slice of the port:
-        the torch backend compiles nothing it could persist."""
-        raise NotImplementedError(
-            f"compile_cache_dir={cache_dir!r}: a persistent compile cache "
-            "is not in this slice of the PyTorch port")
+        """Point the engine at a compile cache dir: the executable index
+        there records every signature the engine builds ahead of its
+        request. What persists in the port is that index of hot
+        signatures: programs (CUDA graphs, runs at a bucket's shapes) die
+        with the process, and a warm restart rebuilds each in
+        :meth:`warmup` before traffic. There is no disk cache of programs
+        (a CUDA graph has nothing that survives a process)."""
+        self.compile_cache_dir = cache_dir
+        self._exec_index = compilecache.ExecutableIndex(cache_dir)
 
     def _session_policy(self, sess: Optional[Session]
                         ) -> compilecache.BucketPolicy:
@@ -779,7 +785,7 @@ class AlchemistEngine:
                 bucketed = True
             else:
                 crops = None    # rule rejected: run exact, real error
-        plan.input_specs = {s: (tuple(a.shape), str(a.dtype))
+        plan.input_specs = {s: (tuple(a.shape), dtype_name(a.dtype))
                             for s, a in run_inputs.items()}
         program, info = backend.get_or_compile(plan)
         self._account_compile(backend, plan, info,

@@ -660,8 +660,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument("--workers", type=int, default=None,
                     help="engine worker count, capped at the one device")
     ap.add_argument("--compile-cache-dir", default=None,
-                    help="a persistent compile cache (refused by the "
-                    "engine: not in this slice of the PyTorch port)")
+                    help="keep the index of the program signatures "
+                    "served in this directory, so that a restart with "
+                    "--warmup rebuilds them (CUDA graphs included) before "
+                    "accepting traffic; programs themselves are not kept")
     ap.add_argument("--warmup", action="store_true",
                     help="run the engine's warmup of the bucketable "
                     "catalog before accepting traffic (and again, in the "

@@ -54,14 +54,15 @@ def test_registration_flags_equal_the_jax_backends():
 
 def test_registry_defaults_to_torch_and_never_fuses():
     """The torch backend fuses burst chains (one task, a CUDA graph on a
-    card); it still has no ``get_or_compile``, so single ops never go
-    through a program cache. The reference backend never fuses."""
+    card) and has the compile surface (``get_or_compile``, ``supports_aot``)
+    through which the engine runs chains and bucketed single ops. The
+    reference backend never fuses."""
     assert port_backends.DEFAULT_BACKEND == "torch"
     assert set(port_backends.available_backends()) == {"torch", "reference"}
     caps = TORCH.capabilities()
     assert caps["supports_fusion"]
     assert not port_backends.ReferenceBackend().supports_fusion
-    assert not hasattr(TORCH, "get_or_compile")
+    assert hasattr(TORCH, "get_or_compile") and TORCH.supports_aot
 
 
 @pytest.mark.parametrize("routine,arrays,scalars,tol", [

@@ -257,15 +257,60 @@ def test_command_line_serves_on_the_cpu_and_stops_on_interrupt():
             proc.wait()
 
 
+def _serve_one_gram(address, x):
+    with port_core.AlchemistContext(address=address) as ac:
+        ac.register_library("elemental", elemental)
+        g = ac.call("elemental", "gram", A=ac.send_matrix(x))["G"]
+        got = ac.wrap(g).to_numpy()
+        stats = ac.call("_engine", "compile_stats")["engine"]
+    return got, stats
+
+
+def test_command_line_warm_restarts_from_its_compile_cache_dir(tmp_path):
+    """``--compile-cache-dir D --warmup``: the first server records the
+    signature it served in D's index; a second server on D replays it in
+    its warmup before serving, and the same request then compiles nothing
+    on the request path (read over the wire)."""
+    cache_dir = str(tmp_path / "cc")
+    x = RNG.randn(40, 6).astype(np.float32)
+    replayed = []
+    for run in range(2):
+        proc = _server_process("--device", "cpu", "--port", "0",
+                               "--compile-cache-dir", cache_dir,
+                               "--warmup")
+        try:
+            line = proc.stdout.readline()
+            m = re.match(r"warmup: \d+ compiled, \d+ cached, (\d+) "
+                         r"replayed from index", line)
+            assert m, (line, proc.stderr.read()
+                       if proc.poll() is not None else "")
+            replayed.append(int(m.group(1)))
+            line = proc.stdout.readline()
+            address = re.match(r"alchemist engine serving on (\S+)",
+                               line).group(1)
+            got, stats = _serve_one_gram(address, x)
+            np.testing.assert_allclose(got, x.T @ x, rtol=1e-5, atol=1e-4)
+            if run == 0:
+                assert stats["request_compiles"] == 1, stats
+            else:
+                assert stats["request_compiles"] == 0, stats
+                assert stats["bucketed_request_compiles"] == 0, stats
+            proc.send_signal(signal.SIGINT)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert replayed[0] == 0 and replayed[1] >= 1
+    assert os.path.exists(os.path.join(cache_dir, "executables.json"))
+
+
 @pytest.mark.parametrize("args,message", [
     (("--port", "0"), "CUDA is not available"),
-    (("--device", "cpu", "--port", "0", "--compile-cache-dir", "x"),
-     "not in this slice"),
 ])
 def test_command_line_refuses_what_it_cannot_serve(args, message):
     """The default device is the card: without CUDA the server exits
-    non-zero instead of serving on the CPU; a compile cache directory is
-    refused by the engine until the port has one."""
+    non-zero instead of serving on the CPU."""
     if torch.cuda.is_available() and "--device" not in args:
         pytest.skip("this check is for a machine without CUDA")
     proc = _server_process(*args)

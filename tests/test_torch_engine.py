@@ -215,10 +215,33 @@ def test_default_device_is_cuda_and_never_falls_back():
     eng.shutdown()
 
 
-def test_compile_cache_dir_is_not_in_this_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="not in this slice"):
-        port_core.AlchemistEngine(device="cpu",
-                                  compile_cache_dir=str(tmp_path))
+def test_compile_cache_dir_opens_the_index_and_records_a_request(tmp_path):
+    """``compile_cache_dir`` opens the executable index there, and a
+    served bucketed request lands in it; a second engine on the same
+    directory reads it back."""
+    cache_dir = str(tmp_path / "cc")
+    eng = port_core.AlchemistEngine(device="cpu", cache_entries=0,
+                                    compile_cache_dir=cache_dir)
+    try:
+        assert eng.compile_cache_dir == cache_dir
+        assert len(eng._exec_index) == 0
+        eng.load_library("elemental", elemental)
+        ac = port_core.AlchemistContext(engine=eng)
+        ac.call("elemental", "gram",
+                A=ac.send_matrix(RNG.randn(37, 5).astype(np.float32)))
+        ac.stop()
+        [rec] = eng._exec_index.entries(backend="torch")
+        assert rec["label"] == "elemental.gram"
+        assert rec["input_specs"] == {"i0": [[64, 32], "float32"]}
+    finally:
+        eng.shutdown()
+    again = port_core.AlchemistEngine(device="cpu",
+                                      compile_cache_dir=cache_dir)
+    try:
+        assert [r["key"] for r in again._exec_index.entries()] == \
+            [rec["key"]]
+    finally:
+        again.shutdown()
 
 
 def test_mllib_baseline_runs_through_the_port(pair):

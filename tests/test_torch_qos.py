@@ -415,8 +415,14 @@ class TestWarmupSurface:
         finally:
             eng.shutdown()
 
-    # test_jax_backend_warmup_compiles is left for the port's compile
-    # cache and warmup (ROADMAP A8): the torch backend has no AOT warmup
+    def test_torch_backend_warmup_compiles(self):
+        eng = AlchemistEngine(device="cpu")
+        try:
+            stats = eng.warmup(backend="torch", grid=(32,))
+            assert stats["skipped"] is False and stats["reason"] == ""
+            assert stats["compiled"] + stats["cached"] > 0
+        finally:
+            eng.shutdown()
 
     def test_compile_stats_reports_active_backend(self):
         eng = AlchemistEngine(device="cpu")
