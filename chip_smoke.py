@@ -1326,7 +1326,10 @@ def phase_warmup(counters, fused) -> dict:
             "capture_failures": backend.capture_failures,
             "held_bytes_counted": backend.held_bytes(),
             "allocated_growth_bytes":
-                torch.cuda.memory_allocated() - allocated}
+                torch.cuda.memory_allocated() - allocated,
+            # the LRU's bounds (count, and bytes: a share of the card) and
+            # what it holds
+            "program_cache_info": backend.program_cache_info()}
         if warm["skipped"] or warm["replayed"] < len(WARM_MIX) + 1 or \
                 backend.capture_failures:
             raise AssertionError(f"warmup: {warm_rec}")
@@ -1397,6 +1400,7 @@ def phase_warmup(counters, fused) -> dict:
              "graphs": backend.graphs(),
              "capture_failures": backend.capture_failures,
              "unbucketed_replay_s": exact_s,
+             "program_cache_info": backend.program_cache_info(),
              "phase_fused_unbucketed_replay_median_s": fused["replay_s"],
              "bits_match_unbucketed": bits,
              "max_abs_err_vs_unbucketed": errs}
@@ -1591,6 +1595,14 @@ def phase_svd_socket(counters) -> dict:
     return launches
 
 
+def _src_env(**extra) -> dict:
+    """This process's environment with the checkout's ``src`` first on
+    ``PYTHONPATH``, and ``extra``."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]), **extra)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1603,13 +1615,9 @@ def _start_server(*args) -> tuple:
     line; returns (the process, its address, the lines it printed, the
     seconds to its address). The caller stops it (``_stop_server``)."""
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO / "src")] + [p for p in
-                               os.environ.get("PYTHONPATH", "").split(
-                                   os.pathsep) if p]))
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.core.server", "--device",
-         DEVICE, "--port", str(_free_port()), *args], env=env,
+         DEVICE, "--port", str(_free_port()), *args], env=_src_env(),
         cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     lines: "queue.Queue" = queue.Queue()
@@ -1790,6 +1798,182 @@ def phase_consistency(model) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the invariant gate on the card
+# ---------------------------------------------------------------------------
+#: the traced drive's bound and the explorer's sweep on the card
+GATE_TIMEOUT_S = 300
+GATE_SWEEP = ("disconnect_vs_midtask", 20)
+#: locks the traced drive must take on the card: the capture and replay
+#: locks exist only where CUDA does (kernels.settle guards the plain
+#: versions, on the CPU only)
+GATE_LOCKS = ("backend.capture", "backend.programs", "backend.program",
+              "kernels.build", "kernels.launches")
+
+
+def _run_module(args, env=None, what="") -> subprocess.CompletedProcess:
+    """``python -m <args>`` from the checkout; raises with its output when
+    it times out."""
+    try:
+        return subprocess.run([sys.executable, "-m", *args], cwd=str(REPO),
+                              env=env or _src_env(), capture_output=True,
+                              text=True, timeout=GATE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"{what or args[0]} ran past "
+                             f"{GATE_TIMEOUT_S} s: {e.stdout}") from None
+
+
+def _sync_free_checks() -> tuple:
+    """Each capture-safe routine's body and each kernel wrapper once, at
+    small shapes on the card, under ``set_sync_debug_mode("error")``: any
+    host sync inside raises. A planted ``.item()`` must raise too (the
+    mode works). Runs with no engine alive; restores the mode. Returns
+    the names checked and the planted call's error."""
+    import torch
+    from repro_torch.core.backends.torch_backend import (CAPTURE_SAFE,
+                                                         TorchBackend)
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.normal_matvec import ops as nm_ops
+    from repro_torch.kernels.rf_map import ops as rf_ops
+    from repro_torch.kernels.swa import ops as swa_ops
+    dev = DEVICE
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    a, b = rnd(128, 64), rnd(64, 96)
+    be = TorchBackend()
+    args = {"multiply": {"A": a, "B": b}, "add": {"A": a, "B": a},
+            "transpose": {"A": a}, "gram": {"A": a},
+            "replicate_cols": {"A": a, "times": 3}}
+    calls = [(f"{lib}.{rt}@capture",
+              lambda rt=rt, lib=lib: be.routine_impl(lib, rt).fn(**args[rt]))
+             for lib, rt in sorted(CAPTURE_SAFE)]
+    x, w = rnd(256, 96), rnd(96, 40)
+    wr, br = rnd(96, 160), torch.rand(160, generator=g).to(dev)
+    q = rnd(1, 4, 128, 64, dtype=torch.bfloat16)
+    kv = rnd(1, 2, 128, 64, dtype=torch.bfloat16)
+    la, lb, h0 = rnd(2, 64, 96), rnd(2, 64, 96), rnd(2, 96)
+    calls += [
+        ("gram", lambda: gram_ops.gram(x)),
+        ("normal_matvec", lambda: nm_ops.normal_matvec(x, w)),
+        ("rf_map", lambda: rf_ops.rf_map(x, 160, bandwidth=2.0, seed=3)),
+        ("rf_map_apply", lambda: rf_ops.rf_map_apply(x, wr, br)),
+        ("swa", lambda: swa_ops.swa_attention(q, kv, kv, window=32)),
+        ("lru_scan", lambda: lru_ops.lru_scan(la, lb, h0)),
+    ]
+    torch.cuda.synchronize()
+    done, planted = [], None
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, fn in calls:
+            fn()
+            done.append(name)
+        try:
+            torch.ones(1, device=dev).sum().item()
+        except RuntimeError as e:
+            planted = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    if planted is None:
+        raise AssertionError("a planted .item() did not raise under "
+                             "set_sync_debug_mode('error')")
+    return done, planted
+
+
+def phase_gate(smi: str) -> dict:
+    """The port's invariant gate (ROADMAP A10) on the card: (a) the static
+    rules, clean with an empty baseline; (b) the engine driven under the
+    lock tracer and the lifecycle monitor with captures, replays, a
+    warmup thread, evictions and spills
+    (``repro_torch.analysis.tracedrive``), its lock report gated by
+    ``--check-lock-report``, and the explorer's sweep of one engine
+    scenario on the card; (c) every capture-safe body and kernel wrapper
+    free of host syncs under the sync debug mode."""
+    t_phase = time.perf_counter()
+    # (a) the static gate
+    r = _run_module(["repro_torch.analysis", "--json"], what="static gate")
+    static = json.loads(r.stdout) if r.stdout.strip() else {}
+    if r.returncode != 0 or not static.get("ok") or static["findings"] \
+            or static["suppressed"]:
+        raise AssertionError(f"static gate (rc {r.returncode}): "
+                             f"{r.stdout}{r.stderr}")
+    t_static = time.perf_counter() - t_phase
+    # (b) the traced drive and its lock report
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-gate-")
+    report_path = os.path.join(tmp, "locks.json")
+    t0 = time.perf_counter()
+    r = _run_module(["repro_torch.analysis.tracedrive", "--device", DEVICE],
+                    env=_src_env(REPRO_LOCK_TRACE="1",
+                                 REPRO_LOCK_TRACE_OUT=report_path,
+                                 REPRO_STM_TRACE="1"), what="traced drive")
+    lines = r.stdout.strip().splitlines()
+    drive = json.loads(lines[-1]) if lines else {}
+    if r.returncode != 0:
+        raise AssertionError(f"traced drive (rc {r.returncode}): "
+                             f"{r.stdout}{r.stderr}")
+    t_drive = time.perf_counter() - t0
+    r = _run_module(["repro_torch.analysis", "--check-lock-report",
+                     report_path, "--json"], what="lock-report gate")
+    report = json.loads(r.stdout) if r.stdout.strip() else {}
+    if r.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"lock-report gate (rc {r.returncode}): "
+                             f"{r.stdout}{r.stderr}")
+    missing = [n for n in GATE_LOCKS if n not in report["locks"]]
+    if missing:
+        raise AssertionError(f"the traced drive never took {missing}: "
+                             f"{report['locks']}")
+    if not drive["launches"].get("gram"):
+        raise AssertionError(f"the traced drive launched no gram kernel: "
+                             f"{drive['launches']}")
+    scenario, schedules = GATE_SWEEP
+    t0 = time.perf_counter()
+    r = _run_module(["repro_torch.analysis.explore", "--scenario", scenario,
+                     "--schedules", str(schedules), "--device", DEVICE],
+                    what="explorer sweep")
+    if r.returncode != 0:
+        raise AssertionError(f"explorer sweep (rc {r.returncode}): "
+                             f"{r.stdout}{r.stderr}")
+    sweep = r.stdout.strip().splitlines()[0]
+    t_sweep = time.perf_counter() - t0
+    # (c) host syncs, dynamically
+    t0 = time.perf_counter()
+    sync_free, planted = _sync_free_checks()
+    rec = {
+        "phase": "gate", "nvidia_smi": smi,
+        "static": {"findings": len(static["findings"]),
+                   "suppressed": len(static["suppressed"]),
+                   "seconds": t_static},
+        "drive": {k: drive[k] for k in (
+            "evictions", "programs", "held_bytes", "max_program_bytes",
+            "capture_failures", "spills", "reloads", "warmup_compiled",
+            "launches", "transitions", "longest_holds")},
+        "monitor_violations": len(drive["violations"]),
+        "drive_seconds": t_drive,
+        "lock_report": {
+            "locks": len(report["locks"]), "edges": len(report["edges"]),
+            "waits_under_lock": len(report["waits_under_lock"]),
+            "cycles": len(report["cycles"]),
+            "rank_inversions": len(report["rank_inversions"]),
+            "lock_names": report["locks"],
+            "edge_list": [f"{e['from']} -> {e['to']} x{e['count']}"
+                          for e in report["edges"]],
+            "waits": [f"{w['wait_on']} under {w['held']} x{w['count']}"
+                      for w in report["waits_under_lock"]],
+            "long_holds_past_50ms": len(report["long_holds"])},
+        "sweep": sweep, "sweep_seconds": t_sweep,
+        "sync_free": sync_free, "planted_item_raised": planted,
+        "sync_seconds": time.perf_counter() - t0,
+        "seconds": time.perf_counter() - t_phase}
+    emit({"gate": rec})
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1853,6 +2037,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, v in lm_launches.items():
         launches[k] += v
+
+    # the invariant gate: static rules, the traced drive, sync freedom
+    phase_gate(smi)
 
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            or m == "repro" for m in sys.modules):

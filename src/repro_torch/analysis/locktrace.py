@@ -79,10 +79,17 @@ LOCK_RANKS: dict[str, int] = {
     # QoS admission sits between the engine and the scheduler: checks
     # run from submit/upload paths and may probe scheduler queue depth
     "qos.admission": 12,
+    # the torch backend's build/capture lock: held across a program's
+    # build, whose eager run may reach the scheduler through the QoS
+    # yield hook, and across the insertion into the program table
+    "backend.capture": 15,
     "scheduler.cv": 20,
     # backend program caches sit below the scheduler (compiled under a
     # worker, outside engine/scheduler locks)
     "backend.programs": 30,
+    # one captured program's replay/release lock: taken under the table
+    # (its nbytes, for the byte bound) and under the capture lock
+    "backend.program": 32,
     "compilecache.index": 35,
     # cost accounting is always a leaf; the logs never nest with each
     # other, so their relative order is free
@@ -92,6 +99,12 @@ LOCK_RANKS: dict[str, int] = {
     "costmodel.compile": 43,
     "costmodel.cache": 44,
     "costmodel.qos": 45,
+    # the kernels' host locks are leaves: the first-use build (under the
+    # capture lock when warmup builds), the CPU vector-math settle and
+    # the launch counters (under a program's lock on replay)
+    "kernels.build": 50,
+    "kernels.settle": 51,
+    "kernels.launches": 52,
 }
 
 

@@ -7,20 +7,24 @@ reservation) spread across ``core/engine.py``, ``core/scheduler.py``,
 study (Rothauge et al., 2019) reports that most operational Alchemist
 failures were session/teardown races, not compute bugs — the class the
 lock tracer catches. This module makes the machines *explicit*, once, in
-data, and holds the runtime half of their checking:
+data:
 
 * :data:`MACHINES` declares every machine: states, the allowed
   transition edges with the function that may take each one, the lock
   that owns the guarded fields, the functions allowed to mutate them at
   all, and terminal-state obligations ("session gone ⇒ reservations
   released", "refcount 0 ⇒ store reclaimed").
-* :class:`StmTrace` asserts the machines on *live* objects when
+* ``rules_stm`` (STM001–STM004) checks the *code* against the spec
+  statically: every mutation of a guarded field must be a declared site,
+  lexically under the declared lock.
+* :class:`StmTrace` asserts the same machines on *live* objects when
   ``REPRO_STM_TRACE=1`` (zero overhead off, mirroring ``locktrace``):
   illegal edges, double mints, orphan transitions, and activity scoped
   to an already-forgotten session are recorded and dumped as JSON.
-
-The static checks of the code against the spec and the interleaving
-explorer are not part of this package yet.
+* ``explore`` drives instrumented engines through seeded deterministic
+  interleavings with this monitor as the oracle.
+* ``docs/torch_architecture.md`` renders its machine tables from
+  :func:`render_tables`, so the documentation cannot drift.
 
 Like ``locktrace``, this module must not import anything from
 ``repro_torch.core`` (core imports *us* at module import time).
@@ -208,10 +212,14 @@ MACHINES: tuple[Machine, ...] = (
         mint_sites=("put", "overwrite"),
         edges=(
             Edge("LIVE", "SPILLED", "_enforce_budget"),
-            Edge("SPILLED", "LIVE", "get"),
+            # the reload: the port's get() and every plain-tensor reader
+            # (SessionView.get, argument materialization, the server's
+            # fetch) resolve through _resolve, which reloads a spilled
+            # store (the JAX engine reloads in get)
+            Edge("SPILLED", "LIVE", "_resolve"),
             # in-place overwrite of a spilled store installs the new
             # device array directly — it comes back resident without
-            # passing through get()'s reload
+            # passing through _resolve()'s reload
             Edge("SPILLED", "LIVE", "overwrite"),
             Edge("LIVE", "RECLAIMED", "_drop_binding"),
             Edge("SPILLED", "RECLAIMED", "_drop_binding"),
@@ -288,6 +296,82 @@ MACHINES: tuple[Machine, ...] = (
 )
 
 MACHINES_BY_NAME: dict[str, Machine] = {m.name: m for m in MACHINES}
+
+
+def validate_machines(machines: tuple[Machine, ...] = MACHINES
+                      ) -> list[str]:
+    """Internal consistency of a spec: every referenced state/site/machine
+    exists. Returns human-readable problems (empty = consistent)."""
+    problems: list[str] = []
+    names = {m.name for m in machines}
+    for m in machines:
+        states = set(m.states)
+        if m.initial not in states:
+            problems.append(f"{m.name}: initial {m.initial!r} not a state")
+        for t in m.terminal:
+            if t not in states:
+                problems.append(f"{m.name}: terminal {t!r} not a state")
+        for e in m.edges:
+            for s in (e.src, e.dst):
+                if s not in states:
+                    problems.append(
+                        f"{m.name}: edge {e.src}->{e.dst} references "
+                        f"unknown state {s!r}")
+        sites = set(m.sites)
+        for o in m.obligations:
+            if o.site not in sites:
+                problems.append(
+                    f"{m.name}: obligation on undeclared site {o.site!r}")
+        for s in m.caller_locked:
+            if s not in sites:
+                problems.append(
+                    f"{m.name}: caller_locked names undeclared site {s!r}")
+        for sc in m.scope_checks:
+            if sc.machine not in names:
+                problems.append(
+                    f"{m.name}: scope check references unknown machine "
+                    f"{sc.machine!r}")
+            else:
+                other = next(x for x in machines if x.name == sc.machine)
+                for st in sc.bad_states:
+                    if st not in other.states:
+                        problems.append(
+                            f"{m.name}: scope check references unknown "
+                            f"state {sc.machine}.{st!r}")
+    return problems
+
+
+def render_tables(machines: tuple[Machine, ...] = MACHINES) -> str:
+    """The five machines as markdown (docs/torch_architecture.md embeds
+    this between ``STM_TABLES`` markers; a test keeps them identical)."""
+    out: list[str] = []
+    for m in machines:
+        lock = f"`{m.lock}`" if m.lock else "none (single-threaded owner)"
+        out.append(f"#### `{m.name}` — {m.subject}")
+        out.append("")
+        out.append(f"Guarded fields: {', '.join(f'`{g}`' for g in m.guarded)}"
+                   f" · lock: {lock} · terminal: "
+                   f"{', '.join(f'`{t}`' for t in m.terminal)}")
+        out.append("")
+        out.append("| from | to | site |")
+        out.append("|---|---|---|")
+        for e in m.edges:
+            out.append(f"| {e.src} | {e.dst} | `{e.site}` |")
+        if m.obligations:
+            out.append("")
+            out.append("Obligations:")
+            for o in m.obligations:
+                calls = ", ".join(f"`{c}`" for c in o.must_call)
+                out.append(f"- `{o.site}` must call {calls} — {o.reason}")
+        if m.scope_checks:
+            out.append("")
+            out.append("Terminal-scope invariants:")
+            for sc in m.scope_checks:
+                bad = "/".join(sc.bad_states)
+                out.append(f"- no `{sc.machine}` in {bad} may outlive the "
+                           f"{m.name} — {sc.reason}")
+        out.append("")
+    return "\n".join(out).rstrip() + "\n"
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,12 @@ engine.
 every fused chain and every bucketed single op through
 :meth:`TorchBackend.get_or_compile`, keyed by ``plan.signature()`` (the
 plan's structure, scalars and ``input_specs``: shapes and dtypes) in one
-bounded LRU (``max_programs``), and pads and crops bucketed operands
-with :meth:`~TorchBackend.pad_to` and :meth:`~TorchBackend.crop_to`. How
-a program is built is decided from the plan and its specs alone, before
-any request, by the size of each input slot: a slot is **small** up to
+LRU bounded by count (``max_programs``) and by the device bytes the
+programs hold (``max_program_bytes``), and pads and crops bucketed
+operands with :meth:`~TorchBackend.pad_to` and
+:meth:`~TorchBackend.crop_to`. How a program is built is decided from
+the plan and its specs alone, before any request, by the size of each
+input slot: a slot is **small** up to
 :data:`~repro_torch.core.compilecache.SMALL_SLOT_BYTES` (the largest
 operand catalog warmup makes, the largest bucket squared in fp32), else
 **large**, and a large slot is read in place, never copied.
@@ -82,7 +84,6 @@ from __future__ import annotations
 
 import collections
 import math
-import threading
 import time
 from typing import Optional
 
@@ -108,6 +109,16 @@ _DENSE = (ROWBLOCK, REPLICATED)
 #: default bound on programs held live (LRU), as the JAX backend bounds
 #: its compiled programs
 DEFAULT_MAX_PROGRAMS = 128
+
+#: default bound on the device bytes live programs hold, as a share of the
+#: card's memory. A program with static buffers pins its inputs and every
+#: step's outputs (up to 256 MiB a slot), where the JAX backend's compiled
+#: executables pin no argument buffers: at the count bound alone, 128
+#: two-input two-step chains at the 8,192 bucket would pin ~128 GiB. A
+#: quarter (~20 GB of an 80 GB card) keeps about twenty such chains hot
+#: and leaves three quarters to the stores, which the engine's memory
+#: budget governs, and to the routines' working memory
+PROGRAM_MEMORY_SHARE = 0.25
 
 #: the routines whose implementation here may be captured into a CUDA
 #: graph: device work only, on the current stream, with no host
@@ -234,7 +245,7 @@ class _Program:
         self.launches = launches
         self.plan = plan
         self.buffers = buffers or {}
-        self.lock = threading.Lock()
+        self.lock = locktrace.make_lock("backend.program")
         self.done = ready       # event after the last replay's copies
 
     @property
@@ -301,8 +312,13 @@ class TorchBackend(base.ExecutionBackend):
     engine); a burst chain runs as one task, replayed from a CUDA graph on
     a card where every step allows capture.
 
-    Programs are held in a bounded LRU (``max_programs``) keyed by plan
-    signature (see the module's docstring for how each is built).
+    Programs are held in an LRU keyed by plan signature (see the module's
+    docstring for how each is built), bounded by count (``max_programs``)
+    and by the device bytes they hold (``max_program_bytes``; ``None``,
+    the default, is :data:`PROGRAM_MEMORY_SHARE` of the device's memory on
+    a card, and no bound on the CPU, where programs hold nothing): the
+    oldest go first while either bound is passed, never the newest, so a
+    program larger than the byte bound stays alone until the next.
     Beside :meth:`program_cache_info`: ``capture_failures`` counts
     captures that failed on the card (nothing is kept; on the request
     path the call is answered eagerly), which no run should see;
@@ -317,18 +333,23 @@ class TorchBackend(base.ExecutionBackend):
     #: off
     supports_aot = True
 
-    def __init__(self, max_programs: int = DEFAULT_MAX_PROGRAMS):
+    def __init__(self, max_programs: int = DEFAULT_MAX_PROGRAMS,
+                 max_program_bytes: Optional[int] = None):
         super().__init__()
         self._programs: "collections.OrderedDict[tuple, object]" = \
             collections.OrderedDict()
         self._programs_lock = locktrace.make_lock("backend.programs")
         # one build or capture at a time, on this backend's side stream
-        self._capture_lock = threading.Lock()
+        self._capture_lock = locktrace.make_lock("backend.capture")
         self._side_stream = None
         #: the engine's device, where compile-time runs and buffers go
         self.device = torch.device("cpu")
         #: bound on live programs (the engine's ``program_cache_size``)
         self.max_programs = int(max_programs)
+        #: bound on the device bytes live programs hold; ``None``: the
+        #: device's share (:meth:`program_bytes_bound`)
+        self.max_program_bytes = None if max_program_bytes is None \
+            else int(max_program_bytes)
         #: programs dropped by the LRU bound since construction
         self.evictions = 0
         #: captures that raised on the card (nothing kept)
@@ -530,11 +551,27 @@ class TorchBackend(base.ExecutionBackend):
         return outs
 
     # ---- program cache --------------------------------------------------
+    def program_bytes_bound(self) -> Optional[int]:
+        """The byte bound in force: ``max_program_bytes``, else
+        :data:`PROGRAM_MEMORY_SHARE` of the device's memory on a card;
+        ``None`` (no bound) on the CPU."""
+        if self.max_program_bytes is not None:
+            return self.max_program_bytes
+        if self.device.type != "cuda":
+            return None
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        return int(PROGRAM_MEMORY_SHARE * total)
+
     def program_cache_info(self) -> dict:
-        """Live programs, their bound, lifetime evictions."""
+        """Live programs and their count bound, the device bytes they hold
+        (``held_bytes``) and the byte bound, lifetime evictions."""
+        bound = self.program_bytes_bound()
+        held = self.held_bytes()
         with self._programs_lock:
             return {"programs": len(self._programs),
                     "max_programs": self.max_programs,
+                    "held_bytes": held,
+                    "max_program_bytes": bound,
                     "evictions": self.evictions}
 
     def graphs(self) -> int:
@@ -558,14 +595,25 @@ class TorchBackend(base.ExecutionBackend):
             return program
 
     def _cache_put(self, key, program) -> int:
-        """Insert under the LRU bound, releasing what falls out of it;
-        returns how many programs were dropped."""
+        """Insert under the LRU bounds, releasing what falls out of them,
+        oldest first: while more than ``max_programs`` programs are live,
+        or while they hold more device bytes than the byte bound (the
+        newest always stays; the bound is read only when programs hold
+        bytes). Returns how many programs were dropped."""
         dropped = []
         with self._programs_lock:
             self._programs[key] = program
             self._programs.move_to_end(key)
             while len(self._programs) > self.max_programs:
                 dropped.append(self._programs.popitem(last=False)[1])
+            held = sum(getattr(p, "nbytes", 0)
+                       for p in self._programs.values())
+            bound = self.program_bytes_bound() if held else None
+            if bound is not None:
+                while held > bound and len(self._programs) > 1:
+                    old = self._programs.popitem(last=False)[1]
+                    held -= getattr(old, "nbytes", 0)
+                    dropped.append(old)
             self.evictions += len(dropped)
         for p in dropped:
             p.release()

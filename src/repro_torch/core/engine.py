@@ -1173,7 +1173,7 @@ class AlchemistEngine:
                 store.host = None
                 if self._stm.enabled:
                     self._stm.note("store", (self._stm_dom, entry.store),
-                                   "LIVE", site="get")
+                                   "LIVE", site="_resolve")
                 self._enforce_budget(keep=entry.store)
             return store.array, store.sharding if carried else store.layout
 

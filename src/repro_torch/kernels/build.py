@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
+
+from repro_torch.analysis import locktrace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -55,7 +56,9 @@ SIGNATURES = {
                  [_INT, _C, _C, _C, _C, _I64, _I64, _I64, _C]),
 }
 
-_lock = threading.Lock()
+# one build at a time; taken under the backend's capture lock when warmup
+# builds a kernel (a leaf: nothing is acquired under it)
+_lock = locktrace.make_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}
 #: ptxas report and wall seconds of each build this process ran
 build_log: dict[str, dict] = {}

@@ -14,6 +14,8 @@ import threading
 
 import torch
 
+from repro_torch.analysis import locktrace
+
 FLOAT_INPUTS = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,7 +54,7 @@ def require_tensor(kernel: str, name: str, t, ndim: int,
         raise ValueError(f"{kernel}: {name} must be contiguous (row-major)")
 
 
-_settle_lock = threading.Lock()
+_settle_lock = locktrace.make_lock("kernels.settle")
 _settled = False
 
 
@@ -169,7 +171,7 @@ class LaunchCounter:
     (:func:`capturing_launches`, :meth:`add` with ``n``)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = locktrace.make_lock("kernels.launches")
         self.value = 0
 
     def add(self, n: int = 1) -> None:

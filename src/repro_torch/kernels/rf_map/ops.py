@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import device
-from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weights
+from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weight_tensors
 from repro_torch.kernels.rf_map.rf_map import rf_map_cuda
 
 LAUNCHES = device.LaunchCounter()
@@ -14,10 +14,10 @@ LAUNCHES = device.LaunchCounter()
 def rf_map(x: torch.Tensor, rf_dim: int, *, bandwidth: float = 1.0,
            seed: int = 0) -> torch.Tensor:
     """Z = sqrt(2/D) cos(X W + b) with (W, b) drawn by
-    :func:`~repro_torch.kernels.rf_map.ref.rf_weights`."""
-    w, b = rf_weights(x.shape[1], rf_dim, bandwidth, seed)
-    return rf_map_apply(x, torch.from_numpy(w).to(x.device),
-                        torch.from_numpy(b).to(x.device))
+    :func:`~repro_torch.kernels.rf_map.ref.rf_weights` (on the host, then
+    copied to ``x``'s device without blocking it)."""
+    w, b = rf_weight_tensors(x.shape[1], rf_dim, bandwidth, seed, x.device)
+    return rf_map_apply(x, w, b)
 
 
 def rf_map_apply(x: torch.Tensor, w: torch.Tensor,

@@ -16,6 +16,21 @@ def rf_weights(d: int, rf_dim: int, bandwidth: float, seed: int):
     return w, b
 
 
+def rf_weight_tensors(d: int, rf_dim: int, bandwidth: float, seed: int,
+                      device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rf_weights` as tensors on ``device``. On a card they are
+    staged in pinned memory and copied asynchronously on the current
+    stream: a copy from pageable memory would block the host until the
+    stream drained (and cannot run inside a capture)."""
+    host = [torch.from_numpy(a) for a in rf_weights(d, rf_dim, bandwidth,
+                                                    seed)]
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host[0].to(device), host[1].to(device)
+    w, b = (t.pin_memory().to(device, non_blocking=True) for t in host)
+    return w, b
+
+
 def rf_map_ref(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """Z = sqrt(2/D) cos(X W + b), fp32. The elementwise steps run in

@@ -790,8 +790,10 @@ def test_get_or_compile_reports_the_jax_backends_keys():
         assert set(got) == set(want) == {"cached", "compile_s", "aot",
                                          "evicted"}
         assert (got["cached"], got["aot"]) == (want["cached"], want["aot"])
+    # the port also reports the device bytes its programs hold and their
+    # bound (a static program pins buffers; a JAX executable pins none)
     assert set(port.program_cache_info()) == \
-        set(ref.program_cache_info())
+        set(ref.program_cache_info()) | {"held_bytes", "max_program_bytes"}
 
 
 # ---------------------------------------------------------------------------

@@ -351,14 +351,16 @@ def test_cuda_program_lru_and_shutdown_release_the_graph_pools(cuda):
         _burst(engine, ac, a1)
         _burst(engine, ac, a2)
         info = backend.program_cache_info()
-        assert info == {"programs": 1, "max_programs": 1, "evictions": 1}
-        assert backend.capture_failures == 0 and backend.graphs() == 1
         # what release frees is the live program's buffer (1024 x 512)
         # and its outputs in its pool: G, S and P (Gt is a view of G); the
         # evicted program's went with it (kept, release would free more)
         out = 512 * 512 * 4
         held = backend.held_bytes()
         assert held == 1024 * 512 * 4 + 3 * out, held
+        quarter = torch.cuda.get_device_properties(cuda).total_memory // 4
+        assert info == {"programs": 1, "max_programs": 1, "held_bytes": held,
+                        "max_program_bytes": quarter, "evictions": 1}
+        assert backend.capture_failures == 0 and backend.graphs() == 1
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         backend.release()
@@ -670,3 +672,86 @@ def test_cuda_a_capture_that_fails_in_warmup_is_counted(cuda, tmp_path,
     finally:
         ac.stop()
         engine.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the invariant gate's repairs on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_program_lru_holds_static_chains_under_its_byte_bound(cuda):
+    """More static-buffer chains than the byte bound holds: the LRU drops
+    the oldest as each new one comes in, the live programs never hold
+    more than the bound (nor does the device, beyond them), and the
+    memory comes back when they are released."""
+    backend = _card_backend(cuda, max_programs=64)
+
+    def plan(i):            # i0 (256 + 8 i) x 256, i1 256 x 128
+        return _chain_plan(backend, {"i0": (256 + 8 * i, 256),
+                                     "i1": (256, 128)})
+
+    try:
+        # settle cuBLAS's workspace on the side stream first
+        backend.get_or_compile(plan(0))
+        one = backend.held_bytes()
+        # the buffers i0 (256 x 256) and i1 (256 x 128) and the outputs C
+        # (256 x 128) and G (256 x 256; Ct is a view of C)
+        assert one == (256 * 256 + 256 * 128 + 256 * 128 + 256 * 256) * 4
+        backend.release()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        bound = int(2.5 * one)
+        backend.max_program_bytes = bound
+        for i in range(8):
+            backend.get_or_compile(plan(i))
+            torch.cuda.synchronize()
+            assert backend.held_bytes() <= bound
+            assert torch.cuda.memory_allocated() - base <= bound + (1 << 20)
+        info = backend.program_cache_info()
+        assert info["max_program_bytes"] == bound
+        assert info["evictions"] >= 6 and info["programs"] <= 2
+        assert backend.graphs() == info["programs"]
+    finally:
+        backend.release()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base <= 1 << 20
+
+
+@pytest.mark.cuda
+def test_cuda_a_planted_item_in_a_capture_safe_body_fails_under_sync_debug(
+        cuda):
+    """What ``chip_smoke.py``'s gate runs for every capture-safe body:
+    under ``set_sync_debug_mode("error")`` the registered body runs, and
+    the same body with a planted ``.item()`` raises. Without the mode the
+    planted sync only fails the chain's capture (counted), and the chain
+    answers eagerly."""
+    import dataclasses
+    backend = _card_backend(cuda)
+    key = ("elemental", "multiply")
+    real = backend.routine_impl(*key)
+
+    def planted(A, B):
+        A.sum().item()                  # a host sync inside the body
+        return real.fn(A=A, B=B)
+
+    backend._impls[key] = dataclasses.replace(real, fn=planted)
+    g = torch.Generator().manual_seed(41)
+    a = torch.randn(64, 32, generator=g).to(cuda)
+    b = torch.randn(32, 48, generator=g).to(cuda)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        real.fn(A=a, B=b)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            backend.routine_impl(*key).fn(A=a, B=b)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    try:
+        program, _ = backend.get_or_compile(
+            _chain_plan(backend, {"i0": (64, 32), "i1": (32, 48)}))
+        assert backend.capture_failures == 1 and backend.graphs() == 0
+        outs = program({"i0": a, "i1": b})
+        c64 = a.double() @ b.double()
+        _f64_close(outs[2]["G"], c64 @ c64.T)
+    finally:
+        backend.release()

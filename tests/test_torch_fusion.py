@@ -496,7 +496,10 @@ def test_the_program_lru_drops_and_releases_its_oldest_past_its_bound():
     be._cache_put("c", progs["c"])
     assert be._cache_get("b") is None and progs["b"].released
     assert not progs["a"].released and not progs["c"].released
+    # the stubs hold no device bytes, and on the CPU no byte bound applies
     assert be.program_cache_info() == {"programs": 2, "max_programs": 2,
+                                       "held_bytes": 0,
+                                       "max_program_bytes": None,
                                        "evictions": 1}
     be.release()
     assert progs["a"].released and progs["c"].released
