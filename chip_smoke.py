@@ -36,7 +36,16 @@ at its published widths, all 38 layers, random fp32 parameters from a
 seed, through ``repro_torch.serve.ServingEngine``: 8 requests of
 3,584-4,096-token prompts, 32 new tokens each, in two waves of 4, every
 prefill running the swa and lru_scan kernels; and it holds the last
-logits of a full forward against prefill + one decode step.
+logits of a full forward against prefill + one decode step. Then it
+trains RecurrentGemma-9B at the same widths, cut to one (rec, rec,
+local) cycle: the step-0 gradient of every parameter (through the swa
+and lru_scan autograd Functions, whose backward passes are the swa_bwd
+kernel and lru_scan's reverse launch), a GaLore projector refresh through
+the engine's randomized SVD, 8 AdamW steps at B = 2, S = 4,096, and the
+offloaded linear probe on the trained trunk. Before the main path it
+also holds the two backward kernels against their plain versions at the
+JAX sweeps and the training shapes, and the reduced model's loss and
+gradients on the card against the CPU.
 
 Each phase prints JSON lines; a failing check raises and the script exits
 non-zero. It needs one CUDA card and imports nothing of JAX or of the JAX
@@ -131,6 +140,13 @@ KERNEL_META = {
             "src/repro/kernels/swa/swa.py:69"),
     "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
                  "src/repro/kernels/lru_scan/lru_scan.py:44"),
+    # the backward halves: the TPU kernels they differentiate have no
+    # backward (the JAX package differentiates XLA attention and
+    # jax.lax.associative_scan)
+    "swa_bwd": ("src/repro_torch/csrc/swa_bwd.cu",
+                "src/repro/kernels/swa/swa.py:69"),
+    "lru_scan_reverse": ("src/repro_torch/csrc/lru_scan.cu",
+                         "src/repro/kernels/lru_scan/lru_scan.py:44"),
 }
 # what each kernel computes on
 KERNEL_DESIGN = {
@@ -141,6 +157,10 @@ KERNEL_DESIGN = {
     "swa": "mma.sync bf16",
     "lru_scan": "fp32 CUDA cores, one thread per channel, fed by a "
                 "cp.async.bulk ring in shared memory",
+    "swa_bwd": "fp32 CUDA cores, 32 x 32 tiles in shared memory, dQ and "
+               "dK/dV in two kernels (no atomics)",
+    "lru_scan_reverse": "the lru_scan kernel with time reversed (its "
+                        "REVERSE template flag)",
 }
 # keys a kernel's record may add to its entry in the kernels line
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
@@ -289,10 +309,13 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
     through the CUDA-core route, bf16 through the tensor-core route, which
     is also held to the main shape's limit (swa_excess)."""
     import torch
-    from repro_torch.kernels.lru_scan.ops import lru_scan
-    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
-    from repro_torch.kernels.swa.ops import swa_attention
-    from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref, \
+        lru_scan_reverse_ref
+    from repro_torch.kernels.swa.ops import swa_attention, \
+        swa_backward, swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref, \
+        swa_forward_ref, swa_ref
     n = 0
     for s, window, kh, d in [(128, 32, 2, 32), (256, 96, 2, 32),
                              (256, 256, 2, 32), (512, 128, 2, 32),
@@ -311,6 +334,19 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
             if not ratio <= 1.0:
                 raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
                                      f"{window}: {ratio:.3f} x the limit")
+        # B4b: the backward from the kernel's own o and lse, against its
+        # plain version on fp32 copies of the same operands
+        o, lse = swa_forward(q, k, v, window, with_lse=True)
+        want_lse = swa_forward_ref(q.float(), k.float(), v.float(),
+                                   window)[1]
+        close_grad("swa_lse", lse, want_lse, 2e-5)
+        dout = _randn(rng, (2, s, 4, d), dt).transpose(1, 2)
+        got = swa_backward(q, k, v, o, lse, dout, window=window)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
+                                lse, dout.float(), window)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window}", g,
+                       w, GRAD_TOL[dn])
         n += 1
     # the JAX sweep, then the copy ring's edges: S = 1, S and W off the
     # 32-step x 32-channel tile, rows not 16-byte aligned (W 33, 100 bf16)
@@ -321,8 +357,31 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
         h0 = _randn(rng, (b, w), torch.float32)
         close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0), dn,
               absolute_atol=True)
+        # B5b: the reverse launch
+        close("lru_scan", lru_scan_reverse(a, x, h0),
+              lru_scan_reverse_ref(a, x, h0), dn, absolute_atol=True)
         n += 1
     return n
+
+
+# the backward kernels against their plain versions: max |got - want|
+# within GRAD_TOL of max |want| (the JAX package's kernel tolerances: its
+# swa fp32 test's 2e-5, and 3e-2 in bf16, where each gradient is rounded
+# to bf16 once)
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def close_grad(name: str, got, want, tol: float) -> float:
+    """Raise unless ``got`` is finite and within ``tol`` of max |want|;
+    returns the max absolute error."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or not err <= tol * scale:
+        raise AssertionError(f"{name} {tuple(got.shape)}: max abs err "
+                             f"{err:.3e} exceeds {tol} x max |want| "
+                             f"{scale:.3e}")
+    return err
 
 
 def swa_excess(got, want) -> tuple[float, float]:
@@ -1799,6 +1858,278 @@ def phase_consistency(model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: train RecurrentGemma-9B at its published widths, cut in depth
+# ---------------------------------------------------------------------------
+#: one (rec, rec, local) cycle of the 38 layers: the fp32 masters,
+#: gradients and AdamW states of all 38 would need ~150 GB
+TRAIN_LAYERS = 3
+TRAIN_B, TRAIN_S = 2, 4_096
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 3e-3, 2
+TRAIN_LOSS_CHUNK = 512
+TRAIN_BIGRAM_Q = 0.9
+GALORE_RANK = 128
+PROBE_BATCHES, PROBE_CLASSES = 16, 8
+# the reduced model's loss and gradients on the card against the CPU: the
+# tests' tolerances against the JAX package (tests/test_torch_train.py)
+TRAIN_CONSISTENCY_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def train_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS,
+                               remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+
+
+def check_train_main_shapes() -> dict:
+    """The two backward kernels at the training shapes: swa_bwd on q
+    (2, 16, 4,096, 256) and k, v (2, 1, 4,096, 256) bf16 views, window
+    2,048, from the forward kernel's o and lse; lru_scan's reverse launch
+    on a and the states' gradient (2, 4,096, 4,096) fp32. Each against its
+    plain version (fp32 copies), with its time, the plain version's, one
+    library call's and the card's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lru_scan.ops import lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_reverse_ref
+    from repro_torch.kernels.swa.ops import swa_backward, swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref
+    cfg = get_config(LM_ARCH)
+    out = {}
+    b, s, h, kh = TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads
+    d, win = cfg.resolved_head_dim, cfg.sliding_window
+    q = _randn_on_card((b, s, h, d), 11).bfloat16().transpose(1, 2)
+    k = _randn_on_card((b, s, kh, d), 12).bfloat16().transpose(1, 2)
+    v = _randn_on_card((b, s, kh, d), 13).bfloat16().transpose(1, 2)
+    dout = _randn_on_card((b, s, h, d), 14).bfloat16().transpose(1, 2)
+    o, lse = swa_forward(q, k, v, win, with_lse=True)
+    got = swa_backward(q, k, v, o, lse, dout, window=win)
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                            dout.float(), win)
+    errs = {n: close_grad(f"swa_bwd {n}", g, w, GRAD_TOL["bfloat16"])
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    rel = {n: errs[n] / float(w.abs().max())
+           for n, w in zip(("dq", "dk", "dv"), want)}
+    del got, want
+    torch.cuda.empty_cache()
+    visible = sum(min(i + 1, win) for i in range(s))
+    # read q, k, v, o, dO and lse once; write dq, dk, dv
+    nbytes = 2.0 * (3 * b * h * s * d + 2 * b * kh * s * d) + 4.0 * b * h * s \
+        + 2.0 * (b * h * s * d + 2 * b * kh * s * d)
+    # five band products of 2 D flops per (query, visible key) pair
+    flops = 10.0 * b * h * d * visible
+    bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    pos = torch.arange(s, device=DEVICE)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - win)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(
+        ql, kl.expand(b, h, s, d), vl.expand(b, h, s, d), attn_mask=band)
+    out["swa_bwd"] = {
+        "shape": [b, h, kh, s, d, win], "dtype": "bfloat16",
+        "max_abs_err": max(errs.values()), "err_over_max": rel,
+        "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
+        "kernel_ms": cuda_time_ms(lambda: swa_backward(
+            q, k, v, o, lse, dout, window=win)),
+        "plain_ms": cuda_time_ms(lambda: swa_backward_ref(
+            q, k, v, o, lse, dout, win)),
+        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dout, retain_graph=True)),
+        "library_note": "the backward of scaled_dot_product_attention with "
+                        "the band as a bool mask, bf16 (k and v expanded "
+                        "to the 16 heads)",
+        "bound_ms": bound, "bound_by": by}
+    del q, k, v, dout, o, lse, ql, kl, vl, lib_out, band
+    torch.cuda.empty_cache()
+
+    w = cfg.lru_width
+    a = torch.sigmoid(_randn_on_card((b, s, w), 15))
+    g = _randn_on_card((b, s, w), 16)
+    zero = torch.zeros((b, w), device=DEVICE)
+    err = close("lru_scan", lru_scan_reverse(a, g, zero),
+                lru_scan_reverse_ref(a, g, zero), "float32",
+                absolute_atol=True)
+    bound, by = bound_ms(4.0 * (3 * b * s * w + b * w), 2.0 * b * s * w)
+    copy_out = torch.empty_like(a)
+    out["lru_scan_reverse"] = {
+        "shape": [b, s, w], "dtype": "float32", "max_abs_err": err,
+        "kernel_ms": cuda_time_ms(lambda: lru_scan_reverse(a, g, zero), 20),
+        "plain_ms": cuda_time_ms(lambda: lru_scan_reverse_ref(a, g, zero)),
+        "copy_ceiling_ms": cuda_time_ms(
+            lambda: torch.add(a, g, out=copy_out), 20),
+        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del a, g, zero, copy_out
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        emit({"phase": "kernel_train_shape", "kernel": name, **rec})
+    return out
+
+
+def check_train_consistency() -> dict:
+    """The reduced RecurrentGemma on the card and on the CPU from the same
+    parameters and batch, fp32 and bf16: the loss and every parameter's
+    gradient (the card's through swa, swa_bwd, lru_scan and its reverse
+    launch), within the tests' tolerances of max |grad|."""
+    import dataclasses
+    import torch
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optim import master_params
+    out = {}
+    for dn, tol in TRAIN_CONSISTENCY_TOL.items():
+        cfg = dataclasses.replace(get_reduced(LM_ARCH), dtype=dn)
+        batch = SyntheticLM(cfg, ShapeConfig("t", 100, 2, "train"),
+                            seed=3).batch(0)
+        res = {}
+        for dev in ("cpu", DEVICE):
+            model = DecoderLM(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(7))
+            model.to(dev)
+            res[dev] = value_and_grad(model, master_params(model),
+                                      to_device(batch, dev),
+                                      cast_params=True)
+        (lc, _, gc), (lg, _, gg) = res["cpu"], res[DEVICE]
+        # each parameter's gradient by its norm (a gradient that nearly
+        # cancels over the batch carries each device's rounding); the
+        # worst element over its tensor's max is reported beside it
+        worst = max(float(torch.linalg.norm(gg[k].cpu() - g)
+                          / torch.linalg.norm(g)) for k, g in gc.items())
+        worst_max = max(float((gg[k].cpu() - g).abs().max()
+                              / g.abs().max()) for k, g in gc.items())
+        rec = {"loss_cpu": float(lc), "loss_card": float(lg),
+               "worst_grad_err_over_norm": worst,
+               "worst_grad_err_over_max": worst_max, "params": len(gc),
+               "tol": tol}
+        if not (abs(float(lc) - float(lg)) <= tol * abs(float(lc))
+                and worst <= tol):
+            raise AssertionError(f"training on the card disagrees with "
+                                 f"the CPU in {dn}: {rec}")
+        out[dn] = rec
+    emit({"phase": "train_consistency", **out})
+    return out
+
+
+def phase_train(counters) -> tuple:
+    """Train RecurrentGemma-9B at its published widths, cut to one
+    (rec, rec, local) cycle, from random fp32 masters (seed 0) in bf16
+    compute with remat and the chunked loss: the step-0 gradient (every
+    parameter's must be finite and not all zero: ROADMAP C11 on the card),
+    a GaLore projector refresh through the engine's randomized SVD,
+    TRAIN_STEPS AdamW steps with the projection on SyntheticLM batches,
+    then the offloaded linear probe (CG on the engine) on the trained
+    trunk's features. Returns (the launch counts of the phase, record)."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import elemental, skylark
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    from repro_torch.train.offload import extract_features, \
+        fit_linear_head_cg, head_accuracy
+    from repro_torch.train.optim import adamw_init, master_params, \
+        refresh_projectors
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(DEVICE).manual_seed(0))
+    params = master_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    shape = ShapeConfig("train", seq_len=TRAIN_S, global_batch=TRAIN_B,
+                        mode="train")
+    data = SyntheticLM(cfg, shape, seed=0, bigram_q=TRAIN_BIGRAM_Q)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, galore_rank=GALORE_RANK)
+    batches = [to_device(data.batch(i), DEVICE) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    loss0, _, grads = value_and_grad(model, params, batches[0],
+                                     cast_params=True)
+    torch.cuda.synchronize()
+    grad0_s = time.perf_counter() - t0
+    bad = [k for k, g in grads.items()
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    if bad:
+        raise AssertionError(f"step-0 gradients None, all zero or not "
+                             f"finite on the card (C11): {bad}")
+    grad0_launches = {k: c.value for k, c in counters.items()}
+
+    ac = AlchemistContext(device=DEVICE)
+    ac.register_library("elemental", elemental)
+    ac.register_library("skylark", skylark)
+    t0 = time.perf_counter()
+    gal = refresh_projectors(ac, grads, rank=GALORE_RANK)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    del grads
+
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, tc, galore_state=gal)
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    del opt, batches, step_fn
+
+    probe = SyntheticLM(cfg, shape, seed=1, bigram_q=1.0)
+    t0 = time.perf_counter()
+    feats, labels = extract_features(
+        model, probe.batches(PROBE_BATCHES, DEVICE),
+        max_batches=PROBE_BATCHES)
+    labels = labels % PROBE_CLASSES
+    w, res = fit_linear_head_cg(ac, feats, labels,
+                                num_classes=PROBE_CLASSES, lam=1e-4)
+    acc = head_accuracy(w, feats, labels)
+    probe_s = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    ac.stop()
+    ac.engine.shutdown()
+
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    rec = {"phase": "train", "arch": LM_ARCH, "layers": cfg.num_layers,
+           "kinds": [k.value for k in cfg.block_kinds()],
+           "params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
+           "tokens_per_step": TRAIN_B * TRAIN_S, "remat": cfg.remat,
+           "loss_chunk": cfg.loss_chunk, "galore_rank": GALORE_RANK,
+           "projectors": len(gal.projectors),
+           "galore_refresh_s": refresh_s, "grad0_s": grad0_s,
+           "loss0": float(loss0), "losses": losses, "step_s": step_s,
+           "median_step_s_after_first": steady,
+           "tokens_per_s": TRAIN_B * TRAIN_S / steady,
+           "max_memory_allocated": peak,
+           "probe": {"rows": int(feats.shape[0]), "accuracy": acc,
+                     "chance": 1 / PROBE_CLASSES,
+                     "cg_iterations": int(res["iterations"]),
+                     "seconds": probe_s},
+           "grad0_launches": grad0_launches, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not acc > 1.5 / PROBE_CLASSES:
+        raise AssertionError(f"the probe does not beat 1.5 / "
+                             f"{PROBE_CLASSES}: {acc}")
+    want = ("swa", "swa_bwd", "lru_scan", "lru_scan_reverse",
+            "normal_matvec")
+    if not all(launches[k] > 0 for k in want):
+        raise AssertionError(f"training launched {launches}")
+    del model, params, gal
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the invariant gate on the card
 # ---------------------------------------------------------------------------
 #: the traced drive's bound and the explorer's sweep on the card
@@ -1856,13 +2187,18 @@ def _sync_free_checks() -> tuple:
     q = rnd(1, 4, 128, 64, dtype=torch.bfloat16)
     kv = rnd(1, 2, 128, 64, dtype=torch.bfloat16)
     la, lb, h0 = rnd(2, 64, 96), rnd(2, 64, 96), rnd(2, 96)
+    o, lse = swa_ops.swa_forward(q, kv, kv, 32, with_lse=True)
     calls += [
         ("gram", lambda: gram_ops.gram(x)),
         ("normal_matvec", lambda: nm_ops.normal_matvec(x, w)),
         ("rf_map", lambda: rf_ops.rf_map(x, 160, bandwidth=2.0, seed=3)),
         ("rf_map_apply", lambda: rf_ops.rf_map_apply(x, wr, br)),
         ("swa", lambda: swa_ops.swa_attention(q, kv, kv, window=32)),
+        ("swa_with_lse", lambda: swa_ops.swa_forward(q, kv, kv, 32, True)),
+        ("swa_bwd", lambda: swa_ops.swa_backward(q, kv, kv, o, lse, q,
+                                                 window=32)),
         ("lru_scan", lambda: lru_ops.lru_scan(la, lb, h0)),
+        ("lru_scan_reverse", lambda: lru_ops.lru_scan_reverse(la, lb, h0)),
     ]
     torch.cuda.synchronize()
     done, planted = [], None
@@ -1988,6 +2324,8 @@ def main() -> int:
     phase_build()
     check_test_shapes()
     kernels = check_main_shapes()
+    kernels.update(check_train_main_shapes())
+    check_train_consistency()
     counters = launch_counters()
 
     ac = AlchemistContext(device=DEVICE)
@@ -2036,6 +2374,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for k, v in lm_launches.items():
+        launches[k] += v
+
+    # training at the published widths, one cycle deep
+    train_launches, _ = phase_train(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in train_launches.items():
         launches[k] += v
 
     # the invariant gate: static rules, the traced drive, sync freedom

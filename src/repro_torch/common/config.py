@@ -1,7 +1,7 @@
-"""Configuration dataclasses for models and shapes, copied from the JAX
-package's ``common/config.py`` so that a configuration reads the same in
-both packages. ``MeshConfig`` and the TPU hardware constants are left out:
-the port runs on one device and measures its own card."""
+"""Configuration dataclasses for models, shapes and training, copied from
+the JAX package's ``common/config.py`` so that a configuration reads the
+same in both packages. ``MeshConfig`` and the TPU hardware constants are
+left out: the port runs on one device and measures its own card."""
 from __future__ import annotations
 
 import dataclasses
@@ -125,3 +125,17 @@ LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, mode="deco
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    # GaLore-style offloaded low-rank projection (Alchemist SVD service)
+    galore_rank: int = 0
+    galore_refresh_every: int = 200

@@ -67,7 +67,12 @@
 // Both: keys outside the band, and the ragged tail past S, get
 // probability 0; the launcher raises the block's dynamic shared-memory
 // limit above the 48 KB default (up to 227 KB on the H100); head dims 32,
-// 64, 128 and 256.
+// 64, 128 and 256. Given an lse buffer (fp32, contiguous (B, H, S)), both
+// also write each row's natural log-sum-exp of its scaled, masked scores,
+// lse_i = log sum_j exp(q_i . k_j * D^-0.5), from the running max and sum
+// they already keep (the Pallas kernel's m / l scratch): the backward
+// (swa_bwd.cu) rebuilds P = exp(S * scale - lse) from it without a second
+// softmax pass. Serving passes none and writes nothing more.
 #include <math.h>
 
 #include "fp32_tiles.cuh"
@@ -119,7 +124,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                   int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
                   int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t window,
-                  float scale_log2) {
+                  float scale_log2, float* __restrict__ lse) {
   constexpr int LD = D + 8;   // padded shared row, in elements
   constexpr int NO = D / 8;   // 8-column output tiles of a warp
   extern __shared__ __align__(16) unsigned char smem[];
@@ -285,6 +290,12 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
   bf16* ob = o + bi * o_sb + hi * o_sh;
+  if (lse != nullptr && t == 0) {
+    // m is in base 2 (scores times scale * log2 e): lse = (m + log2 l) ln 2
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < s) lse[bh * s + r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < s) lse[bh * s + r1] = (m1 + log2f(l1)) * LN2;
+  }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int col = n * 8 + 2 * t;
@@ -300,7 +311,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-              const int64_t* st, int64_t window, float scale,
+              const int64_t* st, int64_t window, float scale, float* lse,
               cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -313,7 +324,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), heads,
       heads / kv_heads, s, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], window, scale * LOG2E);
+      st[7], st[8], st[9], st[10], st[11], window, scale * LOG2E, lse);
   return (int)cudaGetLastError();
 }
 
@@ -349,7 +360,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                int64_t group, int64_t s, int64_t q_sb, int64_t q_sh,
                int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-               int64_t o_sh, int64_t o_ss, int64_t window, float scale) {
+               int64_t o_sh, int64_t o_ss, int64_t window, float scale,
+               float* __restrict__ lse) {
   constexpr int DJ = D / 16;   // output columns of a thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* ps = reinterpret_cast<float*>(smem);              // [BQ][KP]
@@ -473,6 +485,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int64_t qi = q0 + ty + 16 * i;
     if (qi >= s) continue;
     const float inv = 1.f / l[i];   // l >= 1: the diagonal key is visible
+    if (lse != nullptr && tx == 0) lse[bh * s + qi] = m[i] + logf(l[i]);
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       store_out(ob + qi * o_ss + tx + 16 * jj, acc[i][jj] * inv);
@@ -483,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-                const int64_t* st, int64_t window, float scale,
+                const int64_t* st, int64_t window, float scale, float* lse,
                 cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<float, D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -495,7 +508,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), heads,
       heads / kv_heads, s, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], window, scale);
+      st[7], st[8], st[9], st[10], st[11], window, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -503,13 +516,13 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-           const int64_t* st, int64_t window, float scale,
+           const int64_t* st, int64_t window, float scale, float* lse,
            cudaStream_t stream) {
   if (dtype == 0)
     return launch_simt<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
-                          scale, stream);
+                          scale, lse, stream);
   return launch_tc<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
-                      scale, stream);
+                      scale, lse, stream);
 }
 
 }  // namespace
@@ -518,27 +531,29 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // 64, 128, 256. strides: 12 element strides, (batch, head, position) of
 // q, k, v and o in that order; D is contiguous. batch * heads <= 65,535
 // (the wrapper checks). For bf16 every position stride is a multiple of 8
-// and every base 16-byte aligned (cp.async; the wrapper checks). Returns a
-// cudaError_t.
+// and every base 16-byte aligned (cp.async; the wrapper checks). lse: null,
+// or fp32 contiguous (B, H, S) that receives each row's log-sum-exp.
+// Returns a cudaError_t.
 extern "C" int swa_launch(int dtype, int head_dim, const void* q,
                           const void* k, const void* v, void* o,
                           int64_t batch, int64_t heads, int64_t kv_heads,
                           int64_t s, const int64_t* strides, int64_t window,
-                          float scale, void* stream) {
+                          float scale, void* lse_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (head_dim) {
     case 32:
       return launch<32>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, scale, st);
+                        strides, window, scale, lse, st);
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, scale, st);
+                        strides, window, scale, lse, st);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, scale, st);
+                         strides, window, scale, lse, st);
     case 256:
       return launch<256>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, scale, st);
+                         strides, window, scale, lse, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

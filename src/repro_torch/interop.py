@@ -12,7 +12,8 @@ the same way (:func:`tensor_to_numpy`), so a bf16 store crosses to the
 client as bf16, at its own width, as the JAX package hands it out.
 
 :func:`lm_params_from_reference` carries a JAX ``DecoderLM``'s parameters
-into the port's ``DecoderLM``.
+into the port's ``DecoderLM``, and :func:`adamw_state_from_reference` the
+JAX package's AdamW state of such parameters into the port's.
 """
 from __future__ import annotations
 
@@ -141,3 +142,13 @@ def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
             out.update((path, host_to_tensor(np.asarray(arr), device))
                        for path, arr in leaves(v, f"{k}."))
     return out
+
+
+def adamw_state_from_reference(opt, device) -> dict:
+    """The JAX package's AdamW state of a ``DecoderLM`` (``{"m", "v",
+    "step"}``, ``m`` and ``v`` with the parameters' tree structure, as
+    numpy) as the port's: ``m`` and ``v`` renamed and unstacked as
+    :func:`lm_params_from_reference` does, ``step`` an int."""
+    return {"m": lm_params_from_reference(opt["m"], device),
+            "v": lm_params_from_reference(opt["v"], device),
+            "step": int(np.asarray(opt["step"]))}

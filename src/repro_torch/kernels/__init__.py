@@ -3,7 +3,9 @@
 plain PyTorch version, ``<name>.py`` launches the CUDA kernel of
 ``repro_torch/csrc/<name>.cu``, and ``ops.py`` is the wrapper callers
 use — it checks its operands, takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors, counting each launch."""
+launches the kernel for CUDA tensors, counting each launch. ``swa`` also
+holds its backward (``csrc/swa_bwd.cu``) and ``lru_scan`` its reverse
+launch, the two halves of their autograd Functions."""
 from __future__ import annotations
 
 
@@ -16,4 +18,5 @@ def launch_counters() -> dict:
     from repro_torch.kernels.swa import ops as swa_ops
     return {"gram": gram_ops.LAUNCHES, "normal_matvec": nm_ops.LAUNCHES,
             "rf_map": rf_ops.LAUNCHES, "swa": swa_ops.LAUNCHES,
-            "lru_scan": lru_ops.LAUNCHES}
+            "swa_bwd": swa_ops.BWD_LAUNCHES, "lru_scan": lru_ops.LAUNCHES,
+            "lru_scan_reverse": lru_ops.REVERSE_LAUNCHES}

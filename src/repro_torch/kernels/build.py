@@ -26,7 +26,8 @@ from repro_torch.analysis import locktrace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("gram", "normal_matvec", "rf_map", "swa", "lru_scan")
+KERNELS = ("gram", "normal_matvec", "rf_map", "swa", "swa_bwd",
+           "lru_scan")
 
 # No --use_fast_math: it turns cosf into __cosf, which is wrong at the
 # |XW + b| of tens that random features reach.
@@ -48,12 +49,19 @@ SIGNATURES = {
                [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float,
                 _INT, _C]),
     # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window, scale,
-    # stream)
+    # lse or null, stream)
     "swa": ("swa_launch",
             [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
-             ctypes.POINTER(_I64), _I64, ctypes.c_float, _C]),
+             ctypes.POINTER(_I64), _I64, ctypes.c_float, _C, _C]),
+    # (dtype, head_dim, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, K,
+    # S, 24 strides, window, scale, stream)
+    "swa_bwd": ("swa_bwd_launch",
+                [_INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I64,
+                 _I64, _I64, _I64, ctypes.POINTER(_I64), _I64,
+                 ctypes.c_float, _C]),
+    # (dtype, reverse, a, b, h0, out, B, S, W, stream)
     "lru_scan": ("lru_scan_launch",
-                 [_INT, _C, _C, _C, _C, _I64, _I64, _I64, _C]),
+                 [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _C]),
 }
 
 # one build at a time; taken under the backend's capture lock when warmup

@@ -9,6 +9,7 @@ other device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 
@@ -77,7 +78,10 @@ def settle_cpu_vector_math() -> None:
         if not _settled:
             one = torch.ones(1)
             for fn in (torch.cos, torch.sin, torch.exp, torch.log,
-                       torch.tanh, torch.sqrt, torch.rsqrt, torch.sigmoid):
+                       torch.log1p, torch.tanh, torch.sqrt, torch.rsqrt,
+                       torch.sigmoid, torch.nn.functional.softplus,
+                       functools.partial(torch.nn.functional.gelu,
+                                         approximate="tanh")):
                 fn(one)
             _settled = True
 

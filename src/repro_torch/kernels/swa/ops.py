@@ -1,19 +1,32 @@
-"""Public wrapper of sliding-window causal attention. The device decides:
-the plain version for a CPU tensor, the CUDA kernel for a CUDA tensor.
-Forward only, as the TPU kernel: it serves prefill."""
+"""Public wrappers of sliding-window causal attention and its backward.
+The device decides: the plain versions for CPU tensors, the CUDA kernels
+for CUDA tensors.
+
+:func:`swa_attention` is differentiable. Where autograd records (grad mode
+on and an input that requires a gradient) it runs as the
+``torch.autograd.Function`` :class:`SwaFunction`, whose forward also
+writes each row's log-sum-exp and whose backward is
+:func:`swa_backward` (``csrc/swa_bwd.cu`` on the card): no caller can get
+an output cut off from its inputs' gradients. Elsewhere (serving runs
+under ``torch.inference_mode``) it launches the forward kernel alone and
+writes no log-sum-exp. The TPU kernel is forward-only; the JAX package
+differentiates its XLA attention."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import device
-from repro_torch.kernels.swa.ref import swa_ref
-from repro_torch.kernels.swa.swa import swa_cuda
+from repro_torch.kernels.swa.ref import swa_backward_ref, swa_forward_ref, \
+    swa_ref
+from repro_torch.kernels.swa.swa import swa_bwd_cuda, swa_cuda
 
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
 
-#: kernel launches (CUDA tensors only)
+#: forward kernel launches (CUDA tensors only)
 LAUNCHES = device.LaunchCounter()
+#: backward kernel launches (CUDA tensors only)
+BWD_LAUNCHES = device.LaunchCounter()
 
 
 def _tiles_align(t: torch.Tensor) -> bool:
@@ -23,17 +36,7 @@ def _tiles_align(t: torch.Tensor) -> bool:
         st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int) -> torch.Tensor:
-    """Causal attention over keys in (pos - window, pos]. q: (B, H, S, D);
-    k, v: (B, K, S, D) with H % K == 0, all fp32 or all bf16; GQA maps head
-    h to kv head h // (H // K). Any S and any window >= 1 (window >= S is
-    causal attention). On CUDA the last axis must be contiguous; other
-    strides are free, so (B, S, H, D) tensors pass as
-    ``x.transpose(1, 2)`` views; in bf16 they must keep rows 16-byte
-    aligned. fp32 runs on the CUDA cores, bf16 on the tensor cores with
-    the probabilities split into bf16 hi and lo parts for the product
-    with v."""
+def _check(q, k, v, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         device.require_tensor("swa", name, t, 4, contiguous=False)
     if not (q.dtype == k.dtype == v.dtype):
@@ -50,20 +53,106 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kv heads")
     if isinstance(window, bool) or not isinstance(window, int) or window < 1:
         raise ValueError(f"swa: window must be an int >= 1, got {window!r}")
-    if device.on_cpu("swa", q, k, v):
-        return swa_ref(q, k, v, window)
-    device.require_nonempty("swa", B=b, H=h, S=s)
+
+
+def _check_cuda(what: str, *ts: torch.Tensor) -> None:
+    """What the CUDA kernels take: no empty dimension, a head dim they are
+    instantiated for, D contiguous, B * H within a grid's y axis."""
+    b, h, s, d = ts[0].shape
+    device.require_nonempty(what, B=b, H=h, S=s)
     if d not in HEAD_DIMS:
-        raise ValueError(f"swa: head_dim {d} not in {HEAD_DIMS} on CUDA")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("swa: the head_dim axis of q, k, v must be "
-                         "contiguous on CUDA")
+        raise ValueError(f"{what}: head_dim {d} not in {HEAD_DIMS} on CUDA")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError(f"{what}: the head_dim axis of every operand must "
+                         "be contiguous on CUDA")
+    device.require_grid(what, batch_heads=b * h)
+
+
+def swa_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, with_lse: bool = False):
+    """The forward without autograd: (out, lse or None), operands as
+    :func:`swa_attention`'s. With ``with_lse`` it also returns each row's
+    log-sum-exp of its scaled, masked scores, fp32 (B, H, S), which
+    :func:`swa_backward` takes."""
+    _check(q, k, v, window)
+    if device.on_cpu("swa", q, k, v):
+        if with_lse:
+            return swa_forward_ref(q, k, v, window)
+        return swa_ref(q, k, v, window), None
+    _check_cuda("swa", q, k, v)
     if q.dtype == torch.bfloat16 and not all(_tiles_align(t)
                                              for t in (q, k, v)):
         raise ValueError("swa: bf16 on CUDA takes 16-byte aligned q, k, v "
                          "whose batch, head and position strides are "
                          "multiples of 8 elements (16-byte tile copies)")
-    device.require_grid("swa", batch_heads=b * h)
-    out = swa_cuda(q, k, v, window)
+    out, lse = swa_cuda(q, k, v, window, with_lse)
     LAUNCHES.add()
-    return out
+    return out, lse
+
+
+class SwaFunction(torch.autograd.Function):
+    """Sliding-window attention with its gradient: the forward kernel
+    (writing lse), then :func:`swa_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = swa_forward(q, k, v, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = swa_backward(q, k, v, out, lse, dout,
+                                  window=ctx.window)
+        return dq, dk, dv, None
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int) -> torch.Tensor:
+    """Causal attention over keys in (pos - window, pos]. q: (B, H, S, D);
+    k, v: (B, K, S, D) with H % K == 0, all fp32 or all bf16; GQA maps head
+    h to kv head h // (H // K). Any S and any window >= 1 (window >= S is
+    causal attention). On CUDA the last axis must be contiguous; other
+    strides are free, so (B, S, H, D) tensors pass as
+    ``x.transpose(1, 2)`` views; in bf16 they must keep rows 16-byte
+    aligned. fp32 runs on the CUDA cores, bf16 on the tensor cores with
+    the probabilities split into bf16 hi and lo parts for the product
+    with v. Differentiable: see the module's docstring."""
+    _check(q, k, v, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return SwaFunction.apply(q, k, v, window)
+    return swa_forward(q, k, v, window)[0]
+
+
+def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                 window: int) -> tuple:
+    """(dQ, dK, dV) of :func:`swa_attention`, given its inputs, its output
+    ``o``, its fp32 (B, H, S) log-sum-exp ``lse`` and ``dout``, the
+    gradient of ``o`` (o's shape and type; any strides: one not contiguous
+    in D is copied). The plain version for CPU tensors, the kernel of
+    ``csrc/swa_bwd.cu`` for CUDA tensors. Gradients come back in the input
+    type, each laid out like its input."""
+    _check(q, k, v, window)
+    device.require_tensor("swa_bwd", "o", o, 4, contiguous=False)
+    device.require_tensor("swa_bwd", "dout", dout, 4, contiguous=False)
+    device.require_tensor("swa_bwd", "lse", lse, 3, (torch.float32,))
+    if o.shape != q.shape or dout.shape != q.shape or \
+            not (o.dtype == dout.dtype == q.dtype):
+        raise ValueError(f"swa_bwd: o {tuple(o.shape)} {o.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} are not q's "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"swa_bwd: lse {tuple(lse.shape)} is not (B, H, S)"
+                         f" = {tuple(q.shape[:3])}")
+    if device.on_cpu("swa_bwd", q, k, v, o, lse, dout):
+        return swa_backward_ref(q, k, v, o, lse, dout, window)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    _check_cuda("swa_bwd", q, k, v, o, dout)
+    grads = swa_bwd_cuda(q, k, v, o, lse, dout, window)
+    BWD_LAUNCHES.add()
+    return grads

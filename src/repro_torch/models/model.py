@@ -1,14 +1,17 @@
 """The decoder-only LM of the port: embedding, a stack of blocks, final
-norm, unembedding; a full forward, and prefill + decode over caches for
-serving.
+norm, unembedding; a full forward, the training loss, and prefill + decode
+over caches for serving.
 
 The JAX package stacks layers of one structure into segments and scans
 them; the port keeps one module per layer in ``layers`` (a ``ModuleList``
 in the order of ``cfg.block_kinds()``: RecurrentGemma-9B's 38 layers are
 12 (rec, rec, local) cycles and a (rec, rec) tail), so a layer's
 parameters are ``layers.{n}.<path>`` where the JAX package has
-``segments/{i}/b{j}/<path>[l]``. ``loss`` and the encoder-decoder model
-wait for the training slice (ROADMAP A11b, A11c).
+``segments/{i}/b{j}/<path>[l]``. With ``remat`` each layer runs under
+``torch.utils.checkpoint`` (the JAX package checkpoints its scan body);
+training differentiates through the swa and lru_scan kernels' autograd
+Functions on the card. The encoder-decoder and prefix-LM models wait for
+ROADMAP A11c.
 """
 from __future__ import annotations
 
@@ -17,14 +20,18 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import explicit_device
+from repro_torch.kernels.device import settle_cpu_vector_math
 from repro_torch.models.blocks import Block, check_buildable, \
     init_block_cache
 from repro_torch.nn.core import normal
 from repro_torch.nn.linear import Embedding
 from repro_torch.nn.norms import norm
+from repro_torch.train.loss import chunked_unembed_cross_entropy, \
+    softmax_cross_entropy
 
 
 @dataclasses.dataclass
@@ -62,12 +69,19 @@ class DecoderLM(nn.Module):
         return self.embed.embedding.device
 
     def forward(self, tokens: torch.Tensor, *,
-                caches: Optional[list] = None, index: Optional[int] = None):
+                caches: Optional[list] = None, index: Optional[int] = None,
+                remat: bool = False):
         """tokens: (B, S) ids. Without ``index`` the positions are
         0..S-1 (a full forward, or a prefill that fills ``caches``); with
-        it every token sits at position ``index`` (decode, S == 1).
-        Returns (final-norm hidden states (B, S, d), new caches)."""
+        it every token sits at position ``index`` (decode, S == 1). With
+        ``remat`` (no caches) each layer's activations are recomputed in
+        the backward pass instead of kept. Returns (final-norm hidden
+        states (B, S, d), new caches)."""
         cd = self.compute_dtype
+        if tokens.device.type == "cpu":
+            # the layers' first exp, tanh, softplus of a process on large
+            # CPU tensors must not be split across threads (ROADMAP C4)
+            settle_cpu_vector_math()
         x = self.embed.embed(tokens, cd)
         x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=cd)
         b, s, _ = x.shape
@@ -77,11 +91,35 @@ class DecoderLM(nn.Module):
             positions = torch.full((b, s), index, device=x.device)
         new_caches = []
         for n, layer in enumerate(self.layers):
-            x, nc = layer(x, positions,
-                          cache=caches[n] if caches is not None else None,
-                          cache_index=index, compute_dtype=cd)
+            if remat and caches is None:
+                x, nc = _checkpointed(layer, x, positions, cd), None
+            else:
+                x, nc = layer(x, positions,
+                              cache=caches[n] if caches is not None
+                              else None,
+                              cache_index=index, compute_dtype=cd)
             new_caches.append(nc)
         return self.final_norm(x), new_caches
+
+    def loss(self, batch: dict):
+        """Mean next-token nll of ``batch`` ({"tokens", "labels"}: (B, S)
+        ids on the model's device; labels < 0 are ignored). Returns
+        (loss, {"nll", "aux"}): aux, the MoE router loss of the JAX
+        package, is 0 for the blocks the port builds. ``cfg.remat ==
+        "full"`` recomputes each layer in the backward pass;
+        ``cfg.loss_chunk`` selects the chunked unembed + cross-entropy."""
+        cfg = self.cfg
+        x, _ = self.forward(batch["tokens"], remat=cfg.remat == "full")
+        labels = batch["labels"]
+        if cfg.loss_chunk:
+            head = self.lm_head if self.lm_head is not None else self.embed
+            nll = chunked_unembed_cross_entropy(
+                x, head.embedding, labels, seq_chunk=cfg.loss_chunk,
+                compute_dtype=self.compute_dtype)
+        else:
+            nll = softmax_cross_entropy(self.unembed(x), labels)
+        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         head = self.lm_head if self.lm_head is not None else self.embed
@@ -113,3 +151,21 @@ class DecoderLM(nn.Module):
         logits = self.unembed(x[:, -1:])[:, 0]
         return logits, DecodeState(caches=new_caches, index=state.index + 1)
 
+
+def _checkpointed(layer: nn.Module, x: torch.Tensor,
+                  positions: torch.Tensor, compute_dtype: torch.dtype):
+    """``layer(x, positions)[0]`` under ``torch.utils.checkpoint``. The
+    layer's parameters go in as explicit inputs and the recomputation
+    runs on exactly those tensors (``torch.func.functional_call``), so it
+    is right whether the layer holds its own parameters or is called
+    inside another ``functional_call`` (the train step's bf16 copies),
+    which has put its originals back by the time the backward pass
+    recomputes."""
+    names, tensors = zip(*layer.named_parameters())
+
+    def run(x, *params):
+        out, _ = torch.func.functional_call(
+            layer, dict(zip(names, params)), (x, positions),
+            {"compute_dtype": compute_dtype})
+        return out
+    return checkpoint(run, x, *tensors, use_reentrant=False)

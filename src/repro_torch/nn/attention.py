@@ -6,10 +6,13 @@ Routes, by the function computed (never by whether a kernel built):
   * a full forward or prefill that is windowed, with no softcap, runs
     ``kernels.swa_attention`` (the CUDA kernel on the card): with
     ``kv_pos = q_pos`` it computes exactly the masked softmax of
-    :func:`multihead_attention`;
+    :func:`multihead_attention`. Under autograd (training) that is the
+    kernel's ``torch.autograd.Function``, whose backward is the swa
+    backward kernel on the card; its gradients arrive in the layout of
+    the (B, S, H, D) views passed in, so nothing is copied for them;
   * every other case — decode over the cache, global attention, a
     softcap — runs the plain masked :func:`multihead_attention`, as the
-    JAX package computes it in XLA.
+    JAX package computes it in XLA (autograd differentiates it there).
 
 Non-causal, prefix-LM and cross-attention (encoder-decoder, VLM) wait for
 ROADMAP A11c.
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.kernels.device import settle_cpu_vector_math
 from repro_torch.kernels.swa import swa_attention
 from repro_torch.nn.core import fan_in, ones, parameter
 from repro_torch.nn.linear import Weight
@@ -119,6 +123,8 @@ class Attention(nn.Module):
             step, no copy of the whole cache) and returned.
         """
         cfg = self.cfg
+        if x.device.type == "cpu":
+            settle_cpu_vector_math()
         b, s, _ = x.shape
         x = x.to(compute_dtype)
         q = self._project(x, self.q.w, compute_dtype)

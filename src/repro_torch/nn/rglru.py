@@ -13,7 +13,11 @@ The gates, the conv and the single decode step are plain PyTorch, as the
 JAX package computes them in XLA. A full forward or a prefill runs the
 recurrence through ``kernels.lru_scan`` (the CUDA kernel on the card) from
 h0, zeros without a cache: the function the JAX package computes with
-``jax.lax.associative_scan`` after folding h0 into the first input.
+``jax.lax.associative_scan`` after folding h0 into the first input. Under
+autograd (training) that is the kernel's ``torch.autograd.Function``,
+whose backward runs the adjoint recurrence through the same kernel
+launched in reverse, so the gates, the conv and ``lam`` get their
+gradients on the card as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.kernels.device import settle_cpu_vector_math
 from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.nn.core import fan_in, parameter, uniform, zeros
 from repro_torch.nn.linear import Weight
@@ -87,6 +92,8 @@ class RGLRU(nn.Module):
                 cache: Optional[RGLRUCache] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
         """x: (B, S, d). Returns (y, new cache or None)."""
+        if x.device.type == "cpu":
+            settle_cpu_vector_math()
         b, s, _ = x.shape
         x = x.to(compute_dtype)
         xb = x @ self.in_x.w.to(compute_dtype)

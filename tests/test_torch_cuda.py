@@ -53,7 +53,7 @@ def test_cuda_kernels_match_their_plain_versions(cuda, dtype, tols):
                                atol=tols["rf"])
     assert {k: c.value for k, c in counters.items()} == \
         {"gram": 1, "normal_matvec": 1, "rf_map": 1, "swa": 0,
-         "lru_scan": 0}
+         "swa_bwd": 0, "lru_scan": 0, "lru_scan_reverse": 0}
 
 
 SWA_CASES = [  # (s, window, kv heads): the JAX sweep, then the port's own
@@ -102,7 +102,8 @@ def test_cuda_swa_and_lru_scan_match_their_plain_versions(cuda, dtype, tol):
     torch.cuda.synchronize()
     assert {k: c.value for k, c in counters.items()} == \
         {"gram": 0, "normal_matvec": 0, "rf_map": 0,
-         "swa": len(SWA_CASES) + 1, "lru_scan": 4}
+         "swa": len(SWA_CASES) + 1, "swa_bwd": 0, "lru_scan": 4,
+         "lru_scan_reverse": 0}
 
 
 @pytest.mark.cuda
@@ -755,3 +756,127 @@ def test_cuda_a_planted_item_in_a_capture_safe_body_fails_under_sync_debug(
         _f64_close(outs[2]["G"], c64 @ c64.T)
     finally:
         backend.release()
+
+
+# ------------------------------------------------------------- training
+
+def _layer_grads(layer_cls, cfg, dev, args, kwargs, seed=0):
+    """The gradient of sum(out * g) by every parameter and the input of a
+    layer built from a seeded generator on the CPU and moved to ``dev``."""
+    torch.manual_seed(seed)
+    layer = layer_cls(cfg, generator=torch.Generator().manual_seed(seed),
+                      device="cpu").to(dev)
+    params = {k: p.detach().clone().requires_grad_()
+              for k, p in layer.named_parameters()}
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(2, 300, cfg.d_model, generator=gen).to(dev)
+    x.requires_grad_()
+    g = torch.randn(2, 300, cfg.d_model, generator=gen).to(dev)
+    out, _ = torch.func.functional_call(layer, params, (x, *args), kwargs)
+    (out * g).sum().backward()
+    return {"x": x.grad, **{k: p.grad for k, p in params.items()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kind", ["local_attention", "rglru"])
+def test_cuda_layer_gradients_equal_the_cpus(cuda, dtype, tol, kind):
+    """ROADMAP C11: on the card the swa and lru_scan kernels returned
+    tensors cut off from autograd, so q, k, v and the recurrence's inputs
+    got no gradient. Every parameter's gradient of a local-attention and
+    an RG-LRU layer on the card equals the CPU's (by its norm), and the
+    backward kernels ran."""
+    from repro_torch.common.config import ModelConfig
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.rglru import RGLRU
+    cfg = ModelConfig(name="t", num_layers=1, d_model=256, num_heads=4,
+                      num_kv_heads=1, head_dim=64, d_ff=512,
+                      vocab_size=100, sliding_window=100, lru_width=256)
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    pos = torch.arange(300).expand(2, 300)
+    if kind == "rglru":
+        cls, kw = RGLRU, {"compute_dtype": dtype}
+    else:
+        cls, kw = Attention, {"window": 100, "compute_dtype": dtype}
+    grads = {}
+    for dev in ("cpu", cuda):
+        a = () if kind == "rglru" else (pos.to(dev),)
+        grads[str(dev)] = _layer_grads(cls, cfg, dev, a, kw)
+    want, got = grads["cpu"], grads[str(cuda)]
+    assert set(got) == set(want)
+    for k, w in want.items():
+        gk = got[k]
+        assert gk is not None and bool(torch.isfinite(gk).all()), k
+        assert float(gk.abs().max()) > 0, k
+        err = float(torch.linalg.norm(gk.cpu().float() - w.float()))
+        assert err <= tol * float(torch.linalg.norm(w.float())), k
+    torch.cuda.synchronize()
+    fwd, bwd = ("swa", "swa_bwd") if kind == "local_attention" else \
+        ("lru_scan", "lru_scan_reverse")
+    assert counters[fwd].value == 1 and counters[bwd].value == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
+    """swa_bwd (GQA, MQA, S off the 32-row tile, window >= S, every head
+    dim) and the reverse lru_scan against their plain versions on fp32
+    copies, within tol of max |grad|."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_reverse_ref
+    from repro_torch.kernels.swa.ops import swa_backward, swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref
+    g = torch.Generator().manual_seed(3)
+    for b, h, kh, s, d, window in [(2, 4, 2, 128, 32, 32),
+                                   (2, 4, 1, 200, 64, 48),
+                                   (1, 4, 2, 70, 128, 1000),
+                                   (2, 16, 1, 300, 256, 100)]:
+        q = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+        k, v = (torch.randn(b, s, kh, d, generator=g).to(cuda, dtype)
+                for _ in range(2))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        dout = torch.randn(b, h, s, d, generator=g).to(cuda, dtype)
+        o, lse = swa_forward(q, k, v, window, with_lse=True)
+        got = swa_backward(q, k, v, o, lse, dout, window=window)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
+                                lse, dout.float(), window)
+        for gg, w, t in zip(got, want, (q, k, v)):
+            assert gg.dtype == dtype and gg.stride() == t.stride()
+            torch.testing.assert_close(gg.float(), w, rtol=0,
+                                       atol=tol * float(w.abs().max()))
+    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 77, 100), (2, 300, 33)]:
+        a = torch.rand(b, s, w, generator=g).to(cuda, dtype)
+        x = torch.randn(b, s, w, generator=g).to(cuda, dtype)
+        h0 = torch.randn(b, w, generator=g).to(cuda)
+        torch.testing.assert_close(lru_scan_reverse(a, x, h0),
+                                   lru_scan_reverse_ref(a, x, h0),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_inference_launches_no_backward_and_writes_no_lse(cuda,
+                                                              monkeypatch):
+    """Serving's route (inference mode) launches the forward kernels only,
+    as before training existed, and asks the swa kernel for no lse."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.swa import ops as swa_ops
+    asked = []
+    real = swa_ops.swa_cuda
+    monkeypatch.setattr(swa_ops, "swa_cuda", lambda *a: asked.append(a[-1])
+                        or real(*a))
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(1, 2, 64, 32, generator=g).to(cuda, torch.bfloat16)
+    a = torch.rand(1, 64, 32, generator=g).to(cuda)
+    with torch.inference_mode():
+        swa_ops.swa_attention(q, q, q, window=16)
+        lru_scan(a, a, torch.zeros(1, 32, device=cuda))
+    assert asked == [False]
+    assert {k: c.value for k, c in counters.items() if c.value} == \
+        {"swa": 1, "lru_scan": 1}

@@ -1,7 +1,7 @@
 """The port's engine-side NMF (``skylark.nmf`` on the torch backend) under
 the NMF test of ``tests/test_extensions.py``; its normal_matvec tests are
 mirrored in ``tests/test_torch_kernels.py`` and the offloaded linear probe
-waits for the port's training stack (ROADMAP A11b)."""
+in ``tests/test_torch_train.py``."""
 import numpy as np
 
 from repro_torch.core import AlchemistContext

@@ -110,7 +110,7 @@ def test_cpu_wrappers_launch_nothing():
     rf_map(x, 16)
     assert {k: c.value for k, c in counters.items()} == \
         {"gram": 0, "normal_matvec": 0, "rf_map": 0, "swa": 0,
-         "lru_scan": 0}
+         "swa_bwd": 0, "lru_scan": 0, "lru_scan_reverse": 0}
 
 
 def test_cpu_path_settles_vector_math_before_the_first_plain_version(

@@ -1,6 +1,6 @@
 """The port's protocol, transfer, CG and SVD invariants under the
 property tests of ``tests/test_properties.py`` (the two cross-entropy
-properties wait for the port's training stack, ROADMAP A11b).
+properties are in ``tests/test_torch_train.py``).
 
 Property-based tests (hypothesis) on system invariants.
 

@@ -1,6 +1,6 @@
 """The port's offload loop run whole, on the CPU, under the two
-offload tests of ``tests/test_system.py`` (the trainer test waits for the
-port's training stack, ROADMAP A11b).
+offload tests of ``tests/test_system.py`` (the trainer test is in
+``tests/test_torch_train.py``).
 
 End-to-end behaviour tests: the paper's workflow (Fig. 2) run whole —
 client data -> offload -> chained engine calls -> results back in the
