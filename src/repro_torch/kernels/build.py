@@ -53,11 +53,12 @@ SIGNATURES = {
     "swa": ("swa_launch",
             [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
              ctypes.POINTER(_I64), _I64, ctypes.c_float, _C, _C]),
-    # (dtype, head_dim, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, K,
-    # S, 24 strides, window, scale, stream)
+    # (dtype, head_dim, q, k, v, o, dout, lse, dvec, dq, dk, dv, dK/dV
+    # partials or null, B, H, K, S, splits, 24 strides, window, scale,
+    # stream)
     "swa_bwd": ("swa_bwd_launch",
-                [_INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I64,
-                 _I64, _I64, _I64, ctypes.POINTER(_I64), _I64,
+                [_INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
+                 _I64, _I64, _I64, _I64, _I64, ctypes.POINTER(_I64), _I64,
                  ctypes.c_float, _C]),
     # (dtype, reverse, a, b, h0, out, B, S, W, stream)
     "lru_scan": ("lru_scan_launch",

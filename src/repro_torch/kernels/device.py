@@ -120,7 +120,7 @@ def require_grid(kernel: str, **dims: int) -> None:
     big = {k: v for k, v in dims.items() if v > 65_535}
     if big:
         raise ValueError(f"{kernel}: {big} exceed the 65,535 blocks of a "
-                         "grid's y axis on CUDA")
+                         "grid's y or z axis on CUDA")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -133,9 +133,12 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dQ, dK, dV) of :func:`swa_attention`, given its inputs, its output
     ``o``, its fp32 (B, H, S) log-sum-exp ``lse`` and ``dout``, the
     gradient of ``o`` (o's shape and type; any strides: one not contiguous
-    in D is copied). The plain version for CPU tensors, the kernel of
-    ``csrc/swa_bwd.cu`` for CUDA tensors. Gradients come back in the input
-    type, each laid out like its input."""
+    in D, or in bf16 with rows not 16-byte aligned, is copied). The plain
+    version for CPU tensors, the kernels of ``csrc/swa_bwd.cu`` for CUDA
+    tensors: fp32 on the CUDA cores, bf16 on the tensor cores (P and dS
+    rounded to bf16 as operands of their products), where q, k and v
+    must keep rows 16-byte aligned as in the forward. Gradients come back
+    in the input type, each laid out like its input."""
     _check(q, k, v, window)
     device.require_tensor("swa_bwd", "o", o, 4, contiguous=False)
     device.require_tensor("swa_bwd", "dout", dout, 4, contiguous=False)
@@ -150,9 +153,15 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" = {tuple(q.shape[:3])}")
     if device.on_cpu("swa_bwd", q, k, v, o, lse, dout):
         return swa_backward_ref(q, k, v, o, lse, dout, window)
-    if dout.stride(-1) != 1:
+    bf16 = q.dtype == torch.bfloat16
+    if dout.stride(-1) != 1 or (bf16 and not _tiles_align(dout)):
         dout = dout.contiguous()
     _check_cuda("swa_bwd", q, k, v, o, dout)
+    device.require_grid("swa_bwd", key_tiles=-(-q.shape[2] // 64))
+    if bf16 and not all(_tiles_align(t) for t in (q, k, v)):
+        raise ValueError("swa_bwd: bf16 on CUDA takes 16-byte aligned q, "
+                         "k, v whose batch, head and position strides are "
+                         "multiples of 8 elements (16-byte tile copies)")
     grads = swa_bwd_cuda(q, k, v, o, lse, dout, window)
     BWD_LAUNCHES.add()
     return grads

@@ -36,17 +36,45 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+#: the bf16 dK/dV kernel splits a kv head's query heads over at most this
+#: many blocks per key tile (MQA's 16 heads to 1: four times the blocks)
+KV_SPLITS = 4
+
+
+def kv_splits(group: int) -> int:
+    """Blocks a kv head's ``group`` query heads are split over in the bf16
+    dK/dV kernel: up to :data:`KV_SPLITS`, each taking ceil(group /
+    splits) heads, none empty."""
+    per = -(-group // min(group, KV_SPLITS))
+    return -(-group // per)
+
+
+def swa_bwd_route(t: torch.Tensor) -> str:
+    """The route ``csrc/swa_bwd.cu`` takes for ``t``'s dtype, as its
+    launcher reports it (``swa_bwd_route``, the function it dispatches
+    on): ``"tensor_cores"`` or ``"cuda_cores"``. Builds the kernel if
+    needed."""
+    code = build.load("swa_bwd").swa_bwd_route(device.dtype_code(t))
+    return "tensor_cores" if code == 1 else "cuda_cores"
+
+
 def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                  window: int) -> tuple:
     """dQ, dK, dV of :func:`swa_cuda` on the card, from its inputs, its
     output ``o``, its ``lse`` (fp32 contiguous (B, H, S)) and the output's
     gradient ``dout`` (o's shape and type). Every tensor D-contiguous,
-    other strides free. Returns the three gradients in the input type,
-    each laid out like its input."""
+    other strides free (bf16: rows 16-byte aligned). Returns the three
+    gradients in the input type, each laid out like its input. In bf16
+    the dK/dV partials of each split of a kv head's query heads go to an
+    fp32 scratch of 2 x splits x K's size."""
     b, h, s, d = q.shape
+    kh = k.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    splits = kv_splits(h // kh)
+    part = torch.empty((2, splits, b, kh, s, d), dtype=torch.float32,
+                       device=q.device) if q.dtype == torch.bfloat16 else None
     strides = (ctypes.c_int64 * 24)(*(
         st for t in (q, k, v, o, dout, dq, dk, dv) for st in t.stride()[:3]))
     lib = build.load("swa_bwd")
@@ -54,8 +82,8 @@ def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.swa_bwd_launch(
             device.dtype_code(q), d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-            h, k.shape[1], s, strides, window, d ** -0.5,
-            device.stream_ptr(q))
+            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr() if part is not None else None, b, h, kh, s,
+            splits, strides, window, d ** -0.5, device.stream_ptr(q))
     build.check("swa_bwd", err)
     return dq, dk, dv

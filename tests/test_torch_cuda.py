@@ -823,9 +823,11 @@ def test_cuda_layer_gradients_equal_the_cpus(cuda, dtype, tol, kind):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
-    """swa_bwd (GQA, MQA, S off the 32-row tile, window >= S, every head
-    dim) and the reverse lru_scan against their plain versions on fp32
-    copies, within tol of max |grad|."""
+    """swa_bwd (GQA, MQA, S off the 32- and 64-row tiles, window >= S,
+    every head dim) and the reverse lru_scan against their plain versions
+    on fp32 copies, within tol of max |grad|; in bf16 also within
+    chip_smoke.py's GRAD_RMS_TOL of RMS(grad)."""
+    from chip_smoke import GRAD_RMS_TOL, grad_rms_ratio
     from repro_torch.kernels.lru_scan.ops import lru_scan_reverse
     from repro_torch.kernels.lru_scan.ref import lru_scan_reverse_ref
     from repro_torch.kernels.swa.ops import swa_backward, swa_forward
@@ -848,6 +850,8 @@ def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
             assert gg.dtype == dtype and gg.stride() == t.stride()
             torch.testing.assert_close(gg.float(), w, rtol=0,
                                        atol=tol * float(w.abs().max()))
+            if dtype == torch.bfloat16:
+                assert grad_rms_ratio(gg, w) <= GRAD_RMS_TOL["bfloat16"]
     for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 77, 100), (2, 300, 33)]:
         a = torch.rand(b, s, w, generator=g).to(cuda, dtype)
         x = torch.randn(b, s, w, generator=g).to(cuda, dtype)
@@ -855,6 +859,63 @@ def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
         torch.testing.assert_close(lru_scan_reverse(a, x, h0),
                                    lru_scan_reverse_ref(a, x, h0),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_cuda_swa_backward_routes_by_dtype(cuda, head_dim):
+    """The backward's launcher reports the route it dispatches on: bf16 to
+    the tensor-core kernels, fp32 to the CUDA-core kernels. At S = 300
+    (off the 64-row tile) on (B, S, H, D) views with one query head a kv
+    head, GQA and MQA, fp32
+    meets the JAX tests' 2e-5 of max |grad| and bf16 both GRAD_TOL and
+    GRAD_RMS_TOL, against the plain version on fp32 copies."""
+    from chip_smoke import GRAD_RMS_TOL, GRAD_TOL, grad_rms_ratio
+    from repro_torch.kernels.swa.ops import swa_backward, swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref
+    from repro_torch.kernels.swa.swa import swa_bwd_route
+    g = torch.Generator().manual_seed(6)
+    for h, kh in ((8, 8), (8, 2), (8, 1)):
+        q = torch.randn(2, 300, h, head_dim, generator=g).to(cuda)
+        k, v = (torch.randn(2, 300, kh, head_dim, generator=g).to(cuda)
+                for _ in range(2))
+        dout = torch.randn(2, 300, h, head_dim, generator=g).to(cuda)
+        for dtype, route in ((torch.float32, "cuda_cores"),
+                             (torch.bfloat16, "tensor_cores")):
+            qd, kd, vd, gd = (t.to(dtype).transpose(1, 2)
+                              for t in (q, k, v, dout))
+            assert swa_bwd_route(qd) == route
+            o, lse = swa_forward(qd, kd, vd, 100, with_lse=True)
+            got = swa_backward(qd, kd, vd, o, lse, gd, window=100)
+            want = swa_backward_ref(qd.float(), kd.float(), vd.float(),
+                                    o.float(), lse, gd.float(), 100)
+            dn = str(dtype).removeprefix("torch.")
+            for gg, w in zip(got, want):
+                assert gg.dtype == dtype
+                err = float((gg.float() - w).abs().max())
+                assert err <= GRAD_TOL[dn] * float(w.abs().max())
+                if dn in GRAD_RMS_TOL:
+                    assert grad_rms_ratio(gg, w) <= GRAD_RMS_TOL[dn]
+
+
+@pytest.mark.cuda
+def test_cuda_swa_backward_repeats_bit_for_bit(cuda):
+    """Two launches of the bf16 backward at an MQA shape (16 query heads
+    to one kv head: dK and dV summed over four head splits) give the same
+    bits: nothing is added atomically."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    g = torch.Generator().manual_seed(7)
+    q, dout = (torch.randn(2, 1000, 16, 256, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(2, 1000, 1, 256, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    o, lse = swa_ops.swa_forward(q, k, v, 300, with_lse=True)
+    swa_ops.BWD_LAUNCHES.reset()
+    first = swa_ops.swa_backward(q, k, v, o, lse, dout, window=300)
+    second = swa_ops.swa_backward(q, k, v, o, lse, dout, window=300)
+    assert swa_ops.BWD_LAUNCHES.value == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

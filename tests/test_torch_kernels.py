@@ -220,3 +220,59 @@ def test_rf_map_variants_still_apply_to_the_sources():
     for name in VARIANTS:
         changed = variant_sources(name)
         assert all(changed.values()) or name == "as_is"
+
+
+def test_swa_bwd_head_splits_cover_every_group_without_an_empty_split():
+    """The bf16 dK/dV kernel splits a kv head's query heads over up to
+    four blocks of ceil(group / splits) heads (csrc/swa_bwd.cu takes that
+    many per split): every head in exactly one split, none empty."""
+    from repro_torch.kernels.swa.swa import KV_SPLITS, kv_splits
+    assert [kv_splits(g) for g in (1, 2, 4, 6, 16)] == [1, 2, 4, 3, 4]
+    for group in range(1, 65):
+        splits = kv_splits(group)
+        per = -(-group // splits)
+        assert 1 <= splits <= KV_SPLITS
+        assert splits * per >= group > (splits - 1) * per
+
+
+def test_swa_bwd_launcher_declares_the_c_entry():
+    """build.SIGNATURES['swa_bwd'] declares as many arguments as the
+    extern "C" swa_bwd_launch takes (ctypes would pass a shifted list
+    otherwise), and the wrapper passes that many."""
+    import inspect
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.swa import swa
+    src = (build.CSRC / "swa_bwd.cu").read_text()
+    params = re.search(r'extern "C" int swa_bwd_launch\((.*?)\)\s*\{', src,
+                       re.S).group(1)
+    n_c = len(params.split(","))
+    assert len(build.SIGNATURES["swa_bwd"][1]) == n_c
+    call = re.search(r"lib\.swa_bwd_launch\((.*?)\)\n",
+                     inspect.getsource(swa.swa_bwd_cuda), re.S).group(1)
+    depth, n_py = 0, 1
+    for ch in call:
+        depth += ch in "(["
+        depth -= ch in ")]"
+        n_py += ch == "," and depth == 0
+    assert n_py == n_c
+
+
+def test_backward_check_reads_ptxas_per_instantiation():
+    from repro_torch.launch.backward_check import ptxas_report
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115swa_"
+        "bwd_dq_tcILi256EEEvPK13__nv_bfloat16S3_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\nptxas info    : Used 254 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110swa_"
+        "bwd_dqIfLi64EEEvPKT_' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+        "loads\nptxas info    : Used 79 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114swa_"
+        "bwd_reduceEPKf' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, used 0 barriers\n")
+    assert ptxas_report(log) == {
+        "swa_bwd_dq_tc<256>": "254 registers, 0 bytes spill stores",
+        "swa_bwd_dq<float, 64>": "79 registers, 4 bytes spill stores",
+        "swa_bwd_reduce": "40 registers"}

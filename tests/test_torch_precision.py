@@ -17,6 +17,13 @@ plain PyTorch on the CPU and held to the limits the card is held to.
   SWA_ATOL_RMS limit, which must still reject a window one key short and
   a softmax scale 10 % high; rounding p once to bf16 must not stay
   within it (the reason for the split).
+* swa_bwd's bf16 route (csrc/swa_bwd.cu) keeps S, dP, D and every sum in
+  fp32 and rounds P and dS once to bf16 as the A operands of dV = P^T dO,
+  dQ = dS K and dK = dS^T Q, summed over 64-row tiles and, for dK and dV,
+  over a kv head's query heads in up to four fp32 partials; the gradients
+  are rounded to bf16 at the store. Against the float64 gradients it must
+  stay within chip_smoke.py's GRAD_TOL and GRAD_RMS_TOL, and the RMS limit
+  must reject a window one key short and a scale 10 % high.
 
 No card, no kernel: these show that the plans, not the kernels, meet the
 limits; tests/test_torch_cuda.py and chip_smoke.py hold the kernels to
@@ -27,9 +34,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import swa_excess
+from chip_smoke import GRAD_RMS_TOL, GRAD_TOL, grad_rms_ratio, swa_excess
 from repro_torch.kernels.rf_map.ref import rf_weights
-from repro_torch.kernels.swa.ref import swa_ref
+from repro_torch.kernels.swa.ref import swa_forward_ref, swa_ref
+from repro_torch.kernels.swa.swa import kv_splits
 
 NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
 TF32_MASK = -(1 << 13)   # 0xffffe000 as a signed 32-bit pattern
@@ -217,3 +225,130 @@ def test_swa_bf16_plan_matches_the_kernel_contract_at_ragged_shapes():
             for hh in (h, kh, kh))
         want = swa_ref(q.float(), k.float(), v.float(), window)
         assert swa_excess(swa_bf16_plan(q, k, v, window), want)[1] <= 1.0
+
+
+def _band(s, window):
+    pos = torch.arange(s)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - window)
+
+
+def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64):
+    """swa_bwd's bf16 route in plain torch: fp32 S and dP of bf16
+    operands, P = exp(S scale - lse) over the band, D = rowsum(dO o),
+    dS = P (dP - D); P and dS rounded once to bf16 for their products;
+    dQ summed over 64-key tiles, dK and dV over 64-query tiles and the
+    heads of each split of a kv head's query heads (kv_splits), the
+    splits' fp32 partials summed in order; gradients rounded to bf16.
+    ``scale`` plants a wrong softmax scale (default D^-0.5)."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    scale = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, kh, g, s, d)
+    gf = dout.float().reshape(b, kh, g, s, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale
+                  - lse.reshape(b, kh, g, s, 1)) * _band(s, window)
+    dvec = (gf * o.float().reshape(b, kh, g, s, d)).sum(-1, keepdim=True)
+    ds = p * (gf @ vf.transpose(-1, -2) - dvec)
+    p16, ds16 = _bf16(p), _bf16(ds)
+    dq = torch.zeros(b, kh, g, s, d)
+    for k0 in range(0, s, block):
+        dq += ds16[..., k0:k0 + block] @ kf[..., k0:k0 + block, :]
+    per = -(-g // kv_splits(g))
+    dk, dv = torch.zeros(b, kh, s, d), torch.zeros(b, kh, s, d)
+    for h0 in range(0, g, per):
+        pk, pv = torch.zeros(b, kh, s, d), torch.zeros(b, kh, s, d)
+        for hh in range(h0, min(h0 + per, g)):
+            for q0 in range(0, s, block):
+                rows = slice(q0, q0 + block)
+                pk += ds16[:, :, hh, rows].transpose(-1, -2) @ \
+                    qf[:, :, hh, rows]
+                pv += p16[:, :, hh, rows].transpose(-1, -2) @ \
+                    gf[:, :, hh, rows]
+        dk += pk * scale
+        dv += pv
+    return ((dq * scale).reshape(b, h, s, d).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+def swa_bwd_f64(q, k, v, o, lse, dout, window):
+    """The exact gradients of the same formulas in float64, from the same
+    bf16 operands, o and lse."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    qf = q.double().reshape(b, kh, g, s, d)
+    gf = dout.double().reshape(b, kh, g, s, d)
+    kf, vf = k.double()[:, :, None], v.double()[:, :, None]
+    p = torch.exp(qf @ kf.transpose(-1, -2) * d ** -0.5
+                  - lse.double().reshape(b, kh, g, s, 1)) * _band(s, window)
+    dvec = (gf * o.double().reshape(b, kh, g, s, d)).sum(-1, keepdim=True)
+    ds = p * (gf @ vf.transpose(-1, -2) - dvec)
+    return ((ds @ kf * d ** -0.5).reshape(b, h, s, d),
+            (ds.transpose(-1, -2) @ qf).sum(2) * d ** -0.5,
+            (p.transpose(-1, -2) @ gf).sum(2))
+
+
+def _bwd_case(seed, b, h, kh, s, d, window):
+    """bf16 q, k, v, dO (made with numpy from ``seed``), the forward's
+    bf16 o and fp32 lse from the plain version."""
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (b, n, s, d), dtype=np.float32)).bfloat16() for n in (h, kh, kh, h))
+    o, lse = swa_forward_ref(q.float(), k.float(), v.float(), window)
+    return q, k, v, o.bfloat16(), lse, dout
+
+
+def _within_grad_limits(got, want) -> bool:
+    return all(float((g.double() - w).abs().max())
+               <= GRAD_TOL["bfloat16"] * float(w.abs().max())
+               and grad_rms_ratio(g, w) <= GRAD_RMS_TOL["bfloat16"]
+               for g, w in zip(got, want))
+
+
+def test_swa_bwd_bf16_plan_meets_both_limits_and_sees_a_mask_fault():
+    """A reduced training shape (S 1,024, window 512, D 256, MQA): the
+    plan is within GRAD_TOL and GRAD_RMS_TOL of the float64 gradients,
+    and GRAD_RMS_TOL rejects a window one key short and a scale 10 %
+    high."""
+    args = _bwd_case(0, 1, 2, 1, 1024, 256, 512)
+    want = swa_bwd_f64(*args, 512)
+    got = swa_bwd_bf16_plan(*args, 512)
+    assert _within_grad_limits(got, want)
+    # about half the limit: the margin the limit was set with
+    assert max(grad_rms_ratio(g, w) for g, w in zip(got, want)) < \
+        0.6 * GRAD_RMS_TOL["bfloat16"]
+    for fault in (swa_bwd_bf16_plan(*args, 511),
+                  swa_bwd_bf16_plan(*args, 512, scale=1.1 * 256 ** -0.5)):
+        assert max(grad_rms_ratio(g, w) for g, w in zip(fault, want)) > \
+            GRAD_RMS_TOL["bfloat16"]
+
+
+def test_swa_bwd_rms_limit_sees_a_mask_fault_the_max_rule_misses():
+    """At the training window (2,048 keys; S cut to 3,072, one head) a
+    window one key short stays within GRAD_TOL in every gradient, and
+    GRAD_RMS_TOL rejects it in every gradient, with the plan itself at
+    under half the limit."""
+    args = _bwd_case(2, 1, 1, 1, 3072, 256, 2048)
+    want = swa_bwd_f64(*args, 2048)
+    plan = swa_bwd_bf16_plan(*args, 2048)
+    short = swa_bwd_bf16_plan(*args, 2047)
+    assert _within_grad_limits(plan, want)
+    for g, w in zip(short, want):
+        assert float((g.double() - w).abs().max()) \
+            <= GRAD_TOL["bfloat16"] * float(w.abs().max())
+        assert grad_rms_ratio(g, w) > GRAD_RMS_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,window", [
+    (2, 4, 2, 200, 32, 48),    # S off the 64-row tile, GQA, D = 32
+    (1, 6, 1, 130, 32, 1000),  # window past S, 6 heads in 3 splits
+    (2, 16, 1, 300, 64, 100),  # MQA in 4 splits
+])
+def test_swa_bwd_bf16_plan_meets_both_limits_at_ragged_shapes(b, h, kh, s,
+                                                               d, window):
+    args = _bwd_case(1, b, h, kh, s, d, window)
+    assert _within_grad_limits(swa_bwd_bf16_plan(*args, window),
+                               swa_bwd_f64(*args, window))
