@@ -102,8 +102,10 @@ DEVICE = "cuda"
 LM_ARCH = "recurrentgemma-9b"
 LM_REQUESTS, LM_MAX_BATCH, LM_NEW_TOKENS = 8, 4, 32
 LM_PROMPT_MIN, LM_PROMPT_MAX = 3_584, 4_096
-# the main path's kernel shapes: one wave of 4 prompts padded to 4,096
+# the main path's kernel shapes: one wave of 4 prompts padded to 4,096;
+# and lru_scan at one prompt of 16,384 tokens
 LM_B, LM_S = LM_MAX_BATCH, LM_PROMPT_MAX
+LM_LONG_S = 16_384
 # prefill + decode against a full forward: 3e-2 of max |logit|
 # (tests/test_models_smoke.py reads 3e-2, here relative to scale)
 LM_CONSISTENCY_TOL = 3e-2
@@ -155,18 +157,23 @@ KERNEL_DESIGN = {
     "rf_map": "3xTF32 wgmma, persistent 128x160 tiles columns fastest, "
               "cos epilogue staged through shared memory",
     "swa": "mma.sync bf16",
-    "lru_scan": "fp32 CUDA cores, one thread per channel, fed by a "
-                "cp.async.bulk ring in shared memory",
+    "lru_scan": "fp32 CUDA cores; a block scans 32 channels of one batch "
+                "row over a chunk of time from registers (8 warps of 32 "
+                "steps), the chunks chained by a carry with release/acquire "
+                "flags in launch-ticket order; a fixed association",
     "swa_bwd": "bf16 mma.sync, P and dS rounded to bf16; dQ kernel of 64 "
                "queries a block, dK/dV kernel of 64 keys a block over a "
                "quarter of the kv head's query heads, fp32 partials summed "
                "in order (no atomics)",
     "lru_scan_reverse": "the lru_scan kernel with time reversed (its "
-                        "REVERSE template flag)",
+                        "REVERSE template flag), writing a's gradient "
+                        "da_t = lambda_t h_{t-1} in the same pass",
 }
 # keys a kernel's record may add to its entry in the kernels line
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
-                 "copy_ceiling_ms")
+                 "copy_ceiling_ms", "train_shape", "long_prompt",
+                 "unfused_ms",
+                 "lambda_only_ms", "lambda_only_bound_ms")
 
 
 def emit(obj) -> None:
@@ -210,6 +217,22 @@ def close(name: str, got, want, dtype: str, absolute_atol: bool = False):
             f"{float(err.max()):.3e} exceeds rtol {tol} / atol "
             f"{tol * scale:.3e}")
     return float(err.max())
+
+
+def held_scan(name: str, got, want, emulated, again, dtype: str) -> float:
+    """Raise unless a scan output of ``csrc/lru_scan.cu`` is within the
+    JAX tests' tolerance of its plain version and the same bits as its
+    emulation (``lru_scan_chunked_ref``) and as a second launch; returns
+    the max absolute error."""
+    import torch
+    err = close("lru_scan", got, want, dtype, absolute_atol=True)
+    for what, other in (("lru_scan_chunked_ref", emulated),
+                        ("a second launch", again)):
+        if not torch.equal(got, other):
+            raise AssertionError(
+                f"{name} {dtype} {tuple(got.shape)}: not the bits of "
+                f"{what} ({int((got != other).sum())} elements differ)")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -312,9 +335,10 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
     the tensor-core route, which is also held to the main shape's limit
     (swa_excess)."""
     import torch
+    from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
     from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
-    from repro_torch.kernels.lru_scan.ref import lru_scan_ref, \
-        lru_scan_reverse_ref
+    from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
+        lru_scan_ref, lru_scan_reverse_ref
     from repro_torch.kernels.swa.ops import swa_attention, \
         swa_backward, swa_forward
     from repro_torch.kernels.swa.ref import swa_backward_ref, \
@@ -351,18 +375,26 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
             close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window}", g,
                        w, GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
         n += 1
-    # the JAX sweep, then the copy ring's edges: S = 1, S and W off the
-    # 32-step x 32-channel tile, rows not 16-byte aligned (W 33, 100 bf16)
+    # the JAX sweep, then the chunks' edges: S = 1, S short of a chunk,
+    # off a chunk's end and on it, W off the 32-channel group (33, 100)
     for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 128, 512), (1, 1, 64),
-                    (3, 77, 100), (2, 300, 33)]:
+                    (3, 77, 100), (2, 300, 33), (1, 512, 64), (2, 600, 40)]:
         a = torch.sigmoid(_randn(rng, (b, s, w), torch.float32)).to(dt)
         x = (0.1 * _randn(rng, (b, s, w), torch.float32)).to(dt)
         h0 = _randn(rng, (b, w), torch.float32)
-        close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0), dn,
-              absolute_atol=True)
-        # B5b: the reverse launch
-        close("lru_scan", lru_scan_reverse(a, x, h0),
-              lru_scan_reverse_ref(a, x, h0), dn, absolute_atol=True)
+        hs = lru_scan(a, x, h0)
+        held_scan("lru_scan", hs, lru_scan_ref(a, x, h0),
+                  lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS),
+                  lru_scan(a, x, h0), dn)
+        # B5b: the reverse launch from the carry h0, with da
+        got = lru_scan_reverse(a, x, h0, h=hs, h_init=h0)
+        for name, g, want, emul, again in zip(
+                ("lambda", "da"), got,
+                lru_scan_reverse_ref(a, x, h0, hs, h0),
+                lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS, reverse=True,
+                                     h=hs, h_init=h0),
+                lru_scan_reverse(a, x, h0, h=hs, h_init=h0)):
+            held_scan(f"lru_scan_reverse {name}", g, want, emul, again, dn)
         n += 1
     return n
 
@@ -528,12 +560,16 @@ def check_lm_main_shapes() -> dict:
     """swa and lru_scan at the shapes a prefill wave of the served
     RecurrentGemma-9B gives them: q (4, 16, 4,096, 256) and k, v
     (4, 1, 4,096, 256) bf16 as (B, S, H, D) views, window 2,048 (held to
-    the SWA_RTOL / SWA_ATOL_RMS limit); a and b (4, 4,096, 4,096) fp32."""
+    the SWA_RTOL / SWA_ATOL_RMS limit); a and b (4, 4,096, 4,096) fp32,
+    and (1, 16,384, 4,096) as one long prompt (held to the plain version,
+    and to its emulation and a second launch bit for bit)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
     from repro_torch.kernels.lru_scan.ops import lru_scan
-    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
+        lru_scan_ref
     from repro_torch.kernels.swa.ops import swa_attention
     from repro_torch.kernels.swa.ref import swa_ref
     cfg = get_config(LM_ARCH)
@@ -583,8 +619,9 @@ def check_lm_main_shapes() -> dict:
     a = torch.sigmoid(_randn_on_card((b, s, w), 8))
     x = 0.1 * _randn_on_card((b, s, w), 9)
     h0 = _randn_on_card((b, w), 10)
-    err = close("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0),
-                "float32", absolute_atol=True)
+    err = held_scan("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0),
+                    lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS),
+                    lru_scan(a, x, h0), "float32")
     bound, by = bound_ms(4.0 * (3 * b * s * w + b * w), 2.0 * b * s * w)
     o = torch.empty_like(a)
     out["lru_scan"] = {
@@ -596,6 +633,25 @@ def check_lm_main_shapes() -> dict:
         # counterpart of the scan
         "copy_ceiling_ms": cuda_time_ms(lambda: torch.add(a, x, out=o), 20),
         "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del a, x, h0, o
+    torch.cuda.empty_cache()
+    # one prompt of LM_LONG_S tokens: a chain of 64 chunks on 128 blocks
+    # of channels, where walking time in one warp left 77 % of the bound
+    # unused
+    b, s = 1, LM_LONG_S
+    a = torch.sigmoid(_randn_on_card((b, s, w), 11))
+    x = 0.1 * _randn_on_card((b, s, w), 12)
+    h0 = _randn_on_card((b, w), 13)
+    err = held_scan("lru_scan", lru_scan(a, x, h0), lru_scan_ref(a, x, h0),
+                    lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS),
+                    lru_scan(a, x, h0), "float32")
+    o = torch.empty_like(a)
+    out["lru_scan"]["long_prompt"] = {
+        "shape": [b, s, w], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: lru_scan(a, x, h0), 20),
+        "bound_ms": bound_ms(4.0 * (3 * b * s * w + b * w),
+                             2.0 * b * s * w)[0],
+        "copy_ceiling_ms": cuda_time_ms(lambda: torch.add(a, x, out=o), 20)}
     del a, x, h0, o
     torch.cuda.empty_cache()
     return out
@@ -1908,15 +1964,21 @@ def train_config():
 def check_train_main_shapes() -> dict:
     """The two backward kernels at the training shapes: swa_bwd on q
     (2, 16, 4,096, 256) and k, v (2, 1, 4,096, 256) bf16 views, window
-    2,048, from the forward kernel's o and lse; lru_scan's reverse launch
-    on a and the states' gradient (2, 4,096, 4,096) fp32. Each against its
-    plain version (fp32 copies), with its time, the plain version's, one
-    library call's and the card's bound."""
+    2,048, from the forward kernel's o and lse; lru_scan forward and its
+    reverse launch with da (the fused adjoint) on a, b and the states'
+    gradient (2, 4,096, 4,096) fp32, the scans also bit for bit against
+    their emulation and a second launch. Each against its plain version
+    (fp32 copies), with its time, the plain version's, one library call's
+    (or the copy ceiling and the unfused adjoint) and the card's bound.
+    The forward comes back as ``lru_scan_train``, an extra of lru_scan's
+    record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.lru_scan.ops import lru_scan_reverse
-    from repro_torch.kernels.lru_scan.ref import lru_scan_reverse_ref
+    from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
+        lru_scan_ref, lru_scan_reverse_ref
     from repro_torch.kernels.swa.ops import swa_backward, swa_forward
     from repro_torch.kernels.swa.ref import swa_backward_ref
     cfg = get_config(LM_ARCH)
@@ -1982,21 +2044,60 @@ def check_train_main_shapes() -> dict:
 
     w = cfg.lru_width
     a = torch.sigmoid(_randn_on_card((b, s, w), 15))
-    g = _randn_on_card((b, s, w), 16)
-    zero = torch.zeros((b, w), device=DEVICE)
-    err = close("lru_scan", lru_scan_reverse(a, g, zero),
-                lru_scan_reverse_ref(a, g, zero), "float32",
-                absolute_atol=True)
-    bound, by = bound_ms(4.0 * (3 * b * s * w + b * w), 2.0 * b * s * w)
+    x = 0.1 * _randn_on_card((b, s, w), 16)
+    h0 = _randn_on_card((b, w), 17)
+    hs = lru_scan(a, x, h0)
+    err = held_scan("lru_scan", hs, lru_scan_ref(a, x, h0),
+                    lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS),
+                    lru_scan(a, x, h0), "float32")
+    scan_bytes = 4.0 * (3 * b * s * w + b * w)
     copy_out = torch.empty_like(a)
+    # the forward at the training shape: an extra of lru_scan's record
+    out["lru_scan_train"] = {
+        "shape": [b, s, w], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: lru_scan(a, x, h0), 20),
+        "bound_ms": bound_ms(scan_bytes, 2.0 * b * s * w)[0],
+        "copy_ceiling_ms": cuda_time_ms(
+            lambda: torch.add(a, x, out=copy_out), 20)}
+    # the adjoint as the backward runs it: the states' gradient g, a zero
+    # carry, the forward's states and h0; lambda and da in one pass
+    g = _randn_on_card((b, s, w), 18)
+    zero = torch.zeros((b, w), device=DEVICE)
+    got = lru_scan_reverse(a, g, zero, h=hs, h_init=h0)
+    errs = [held_scan(f"lru_scan_reverse {n}", gg, want, emul, again,
+                      "float32")
+            for n, gg, want, emul, again in zip(
+                ("lambda", "da"), got,
+                lru_scan_reverse_ref(a, g, zero, hs, h0),
+                lru_scan_chunked_ref(a, g, zero, CHUNK, WARPS, reverse=True,
+                                     h=hs, h_init=h0),
+                lru_scan_reverse(a, g, zero, h=hs, h_init=h0))]
+    del got
+
+    def unfused():
+        lam = lru_scan_reverse(a, g, zero)
+        return lam * torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+
+    # read a, g and h, write lambda and da (20 bytes an element), plus the
+    # two carries; one multiply-add and one multiply an element
+    bound, by = bound_ms(4.0 * (5 * b * s * w + 2 * b * w),
+                         3.0 * b * s * w)
     out["lru_scan_reverse"] = {
-        "shape": [b, s, w], "dtype": "float32", "max_abs_err": err,
-        "kernel_ms": cuda_time_ms(lambda: lru_scan_reverse(a, g, zero), 20),
-        "plain_ms": cuda_time_ms(lambda: lru_scan_reverse_ref(a, g, zero)),
+        "shape": [b, s, w], "dtype": "float32", "max_abs_err": max(errs),
+        "kernel_ms": cuda_time_ms(
+            lambda: lru_scan_reverse(a, g, zero, h=hs, h_init=h0), 20),
+        "plain_ms": cuda_time_ms(
+            lambda: lru_scan_reverse_ref(a, g, zero, hs, h0)),
+        # the yardstick the fused pass replaces, never the port's path: the
+        # reverse for lambda alone, then a concatenation and a multiply
+        "unfused_ms": cuda_time_ms(unfused, 20),
+        "lambda_only_ms": cuda_time_ms(
+            lambda: lru_scan_reverse(a, g, zero), 20),
+        "lambda_only_bound_ms": bound_ms(scan_bytes, 2.0 * b * s * w)[0],
         "copy_ceiling_ms": cuda_time_ms(
             lambda: torch.add(a, g, out=copy_out), 20),
         "library_ms": None, "bound_ms": bound, "bound_by": by}
-    del a, g, zero, copy_out
+    del a, x, g, h0, hs, zero, copy_out
     torch.cuda.empty_cache()
     for name, rec in out.items():
         emit({"phase": "kernel_train_shape", "kernel": name, **rec})
@@ -2236,6 +2337,8 @@ def _sync_free_checks() -> tuple:
                                                  window=32)),
         ("lru_scan", lambda: lru_ops.lru_scan(la, lb, h0)),
         ("lru_scan_reverse", lambda: lru_ops.lru_scan_reverse(la, lb, h0)),
+        ("lru_scan_adjoint", lambda: lru_ops.lru_scan_reverse(
+            la, lb, h0, h=lb, h_init=h0)),
     ]
     torch.cuda.synchronize()
     done, planted = [], None
@@ -2362,6 +2465,7 @@ def main() -> int:
     check_test_shapes()
     kernels = check_main_shapes()
     kernels.update(check_train_main_shapes())
+    kernels["lru_scan"]["train_shape"] = kernels.pop("lru_scan_train")
     check_train_consistency()
     counters = launch_counters()
 

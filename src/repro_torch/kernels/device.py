@@ -114,13 +114,14 @@ def require_nonempty(kernel: str, **dims: int) -> None:
                          f"({dims}) on CUDA")
 
 
-def require_grid(kernel: str, **dims: int) -> None:
-    """A launch puts these dimensions on a grid's y axis, which holds at
-    most 65,535 blocks."""
-    big = {k: v for k, v in dims.items() if v > 65_535}
+def require_grid(kernel: str, axis: str = "y", **dims: int) -> None:
+    """A launch puts these dimensions on a grid's ``axis``: y and z hold
+    at most 65,535 blocks, x 2**31 - 1."""
+    most = 2 ** 31 - 1 if axis == "x" else 65_535
+    big = {k: v for k, v in dims.items() if v > most}
     if big:
-        raise ValueError(f"{kernel}: {big} exceed the 65,535 blocks of a "
-                         "grid's y or z axis on CUDA")
+        raise ValueError(f"{kernel}: {big} exceed the {most:,} blocks of a "
+                         f"grid's {axis} axis on CUDA")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -6,17 +6,17 @@ kernel for CUDA tensors.
 and an input that requires a gradient) it runs as the
 ``torch.autograd.Function`` :class:`LruScanFunction`, whose backward runs
 the adjoint recurrence through :func:`lru_scan_reverse` (the same CUDA
-kernel launched reversed on the card): no caller can get states cut off
-from their inputs' gradients. Elsewhere (serving runs under
-``torch.inference_mode``) it launches the forward kernel alone. The TPU
-kernel is forward-only; the JAX package differentiates
-``jax.lax.associative_scan``."""
+kernel launched reversed on the card, writing a's gradient in the same
+pass): no caller can get states cut off from their inputs' gradients.
+Elsewhere (serving runs under ``torch.inference_mode``) it launches the
+forward kernel alone. The TPU kernel is forward-only; the JAX package
+differentiates ``jax.lax.associative_scan``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import device
-from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+from repro_torch.kernels.lru_scan.lru_scan import CHUNK, lru_scan_cuda
 from repro_torch.kernels.lru_scan.ref import lru_scan_ref, \
     lru_scan_reverse_ref
 
@@ -39,9 +39,12 @@ def _check(what: str, a, b, h0) -> None:
 
 
 def _check_cuda(what: str, a) -> None:
-    device.require_nonempty(what, B=a.shape[0], S=a.shape[1],
-                            W=a.shape[2])
-    device.require_grid(what, batch=a.shape[0])
+    b, s, w = a.shape
+    device.require_nonempty(what, B=b, S=s, W=w)
+    # one block per chunk of CHUNK steps x 32 channels of a batch row, on
+    # the grid's x axis
+    device.require_grid(what, blocks=b * -(-w // 32) * -(-s // CHUNK),
+                        axis="x")
 
 
 def _scan(a, b, h0) -> torch.Tensor:
@@ -70,12 +73,14 @@ class LruScanFunction(torch.autograd.Function):
         a, h0, h = ctx.saved_tensors
         # the kernel takes a and b of one type: the gradient is fp32
         af = a if a.dtype == torch.float32 else a.float()
-        lam = lru_scan_reverse(af, g.float().contiguous(),
-                               torch.zeros_like(h0))
+        g, zero = g.float().contiguous(), torch.zeros_like(h0)
         da = db = dh0 = None
         if ctx.needs_input_grad[0]:
-            h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
-            da = (lam * h_prev).to(a.dtype)
+            # the same pass writes da_t = lambda_t h_{t-1}
+            lam, da = lru_scan_reverse(af, g, zero, h=h, h_init=h0)
+            da = da.to(a.dtype)
+        else:
+            lam = lru_scan_reverse(af, g, zero)
         if ctx.needs_input_grad[1]:
             db = lam.to(a.dtype)            # b's type is a's
         if ctx.needs_input_grad[2]:
@@ -96,17 +101,35 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
     return _scan(a, b, h0)
 
 
-def lru_scan_reverse(a: torch.Tensor, b: torch.Tensor,
-                     h0: torch.Tensor) -> torch.Tensor:
+def lru_scan_reverse(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                     h: torch.Tensor | None = None,
+                     h_init: torch.Tensor | None = None):
     """y_t = a_{t+1} y_{t+1} + b_t for t = S - 1 .. 0, the carry ``h0``
     entering the last step unscaled (y_{S-1} = h0 + b_{S-1}); returns
     every y, (B, S, W) fp32. Operands as :func:`lru_scan`'s. With b the
     gradient of the states and h0 zero, y is the adjoint of
-    :func:`lru_scan`."""
+    :func:`lru_scan`. Given ``h`` (the forward's states, contiguous
+    (B, S, W) fp32) and ``h_init`` (its h0, (B, W) fp32), returns
+    (y, da) with da_t = y_t h_{t-1} (h_{-1} = h_init), from the same
+    launch on the card."""
     _check("lru_scan_reverse", a, b, h0)
-    if device.on_cpu("lru_scan_reverse", a, b, h0):
-        return lru_scan_reverse_ref(a, b, h0)
+    if (h is None) != (h_init is None):
+        raise ValueError("lru_scan_reverse: h and h_init come together")
+    tensors = (a, b, h0)
+    if h is not None:
+        device.require_tensor("lru_scan_reverse", "h", h, 3,
+                              (torch.float32,))
+        device.require_tensor("lru_scan_reverse", "h_init", h_init, 2,
+                              (torch.float32,))
+        if h.shape != a.shape or h_init.shape != h0.shape:
+            raise ValueError(f"lru_scan_reverse: h {tuple(h.shape)} and "
+                             f"h_init {tuple(h_init.shape)} are not a's "
+                             f"{tuple(a.shape)} and h0's "
+                             f"{tuple(h0.shape)}")
+        tensors += (h, h_init)
+    if device.on_cpu("lru_scan_reverse", *tensors):
+        return lru_scan_reverse_ref(a, b, h0, h, h_init)
     _check_cuda("lru_scan_reverse", a)
-    out = lru_scan_cuda(a, b, h0, reverse=True)
+    out = lru_scan_cuda(a, b, h0, reverse=True, h=h, h_init=h_init)
     REVERSE_LAUNCHES.add()
     return out

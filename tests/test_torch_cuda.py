@@ -180,24 +180,32 @@ def test_cuda_rf_map_tile_edges(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_lru_scan_ring_edges(cuda, dtype, tol):
-    """The copy-ring lru_scan where its tiles bite: S = 1, S off the
-    32-step tile, W off the 32-channel group (and rows not 16-byte
-    aligned: element copies), B = 3; then the h0 carry across tiles."""
-    from repro_torch.kernels.lru_scan.ops import lru_scan
-    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    """The chunked lru_scan where its chunks and lane groups bite: S = 1,
+    S short of a chunk, off a chunk's end and on it, W off the 32-channel
+    group (33, 100), B = 3; both directions, the reverse with its fused da
+    against the plain version; then the h0 carry across chunks."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref, \
+        lru_scan_reverse_ref
     g = torch.Generator().manual_seed(5)
     for b, s, w in [(1, 1, 64), (2, 77, 128), (1, 100, 100), (3, 64, 33),
-                    (3, 300, 4096)]:
+                    (3, 300, 4096), (1, 256, 64), (2, 513, 40),
+                    (1, 1100, 96)]:
         a = torch.sigmoid(torch.randn(b, s, w, generator=g)).to(cuda, dtype)
         x = (0.1 * torch.randn(b, s, w, generator=g)).to(cuda, dtype)
         h0 = torch.randn(b, w, generator=g).to(cuda)
-        torch.testing.assert_close(lru_scan(a, x, h0),
-                                   lru_scan_ref(a, x, h0), rtol=tol,
+        hs = lru_scan(a, x, h0)
+        torch.testing.assert_close(hs, lru_scan_ref(a, x, h0), rtol=tol,
                                    atol=tol)
-    got = lru_scan(torch.full((2, 70, 40), 0.5, device=cuda, dtype=dtype),
-                   torch.zeros((2, 70, 40), device=cuda, dtype=dtype),
+        got = lru_scan_reverse(a, x, h0, h=hs, h_init=h0)
+        for gg, want in zip(got, lru_scan_reverse_ref(a, x, h0, hs, h0)):
+            torch.testing.assert_close(gg, want, rtol=tol, atol=tol)
+    got = lru_scan(torch.full((2, 700, 40), 0.5, device=cuda, dtype=dtype),
+                   torch.zeros((2, 700, 40), device=cuda, dtype=dtype),
                    torch.full((2, 40), 2.0 ** 20, device=cuda))
-    want = 2.0 ** (19 - torch.arange(70, dtype=torch.float64))
+    # 2^(19 - t) down to fp32's least subnormal 2^-149 at t = 168, then 0
+    want = torch.cat([2.0 ** (19 - torch.arange(169, dtype=torch.float64)),
+                      torch.zeros(531, dtype=torch.float64)])
     torch.testing.assert_close(got[1, :, 39].cpu().double(), want,
                                rtol=0, atol=0)
 
@@ -205,26 +213,44 @@ def test_cuda_lru_scan_ring_edges(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_lru_scan_is_the_sequential_fma_scan(cuda, dtype):
-    """The copy ring changes where a and b come from, not the arithmetic:
-    each state is one rounding of a_t h_{t-1} + b_t to fp32 (fmaf), as in
-    the one-thread-per-channel kernel before it, so the states are the same
-    bits. The emulation forms a h exactly in float64 and rounds the sum
-    once more; it could differ only where that sum lands on an fp32 tie,
-    which this data does not reach. Bulk copies (W 96) and element copies
-    (W 33)."""
-    from repro_torch.kernels.lru_scan.ops import lru_scan
+    """Since the kernel splits time into chunks its states are no longer
+    the sequential walk's bits: every step is still one fmaf, in the
+    chunked association that ``lru_scan_chunked_ref`` emulates. Both
+    directions (the reverse with da) are those bits, at the launcher's
+    chunk and at every built configuration, and the same bits at a second
+    launch; and within the fp32 tolerance of the sequential walk in
+    float64. Full chunks, a short last chunk, W 33 (a short lane group)."""
+    from repro_torch.kernels.lru_scan.lru_scan import CHUNK, CONFIGS, \
+        WARPS, lru_scan_cuda
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
+    from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref
     g = torch.Generator().manual_seed(6)
-    for b, s, w in [(2, 300, 96), (1, 77, 33)]:
+    for b, s, w in [(2, 1030, 96), (1, 77, 33), (2, 512, 64)]:
         a = torch.sigmoid(torch.randn(b, s, w, generator=g)).to(dtype)
         x = (0.1 * torch.randn(b, s, w, generator=g)).to(dtype)
         h0 = torch.randn(b, w, generator=g)
-        want = torch.empty(b, s, w)
-        h = h0
+        want = torch.empty(b, s, w, dtype=torch.float64)
+        h = h0.double()
         for t in range(s):
-            h = (a[:, t].double() * h.double() + x[:, t].double()).float()
+            h = a[:, t].double() * h + x[:, t].double()
             want[:, t] = h
-        got = lru_scan(a.to(cuda), x.to(cuda), h0.to(cuda)).cpu()
-        assert torch.equal(got, want)
+        ac, xc, h0c = a.to(cuda), x.to(cuda), h0.to(cuda)
+        got = lru_scan(ac, xc, h0c)
+        torch.testing.assert_close(got.cpu().double(), want, rtol=1e-5,
+                                   atol=1e-5)
+        emul = lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS)
+        assert torch.equal(got.cpu(), emul)
+        assert torch.equal(lru_scan(ac, xc, h0c), got)
+        rev = lru_scan_reverse(ac, xc, h0c, h=got, h_init=h0c)
+        emul = lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS, reverse=True,
+                                    h=got.cpu(), h_init=h0)
+        again = lru_scan_reverse(ac, xc, h0c, h=got, h_init=h0c)
+        for r, e, r2 in zip(rev, emul, again):
+            assert torch.equal(r.cpu(), e) and torch.equal(r, r2)
+        for chunk, warps in CONFIGS:
+            other = lru_scan_cuda(ac, xc, h0c, chunk=chunk, warps=warps)
+            assert torch.equal(other.cpu(), lru_scan_chunked_ref(
+                a, x, h0, chunk, warps))
 
 
 # ---------------------------------------------------------------------------
@@ -852,13 +878,20 @@ def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
                                        atol=tol * float(w.abs().max()))
             if dtype == torch.bfloat16:
                 assert grad_rms_ratio(gg, w) <= GRAD_RMS_TOL["bfloat16"]
-    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 77, 100), (2, 300, 33)]:
+    # the reverse lru_scan, then its chunks' edges (S on and off a chunk's
+    # end), each also with the fused da from forward states
+    for b, s, w in [(2, 64, 128), (1, 100, 96), (3, 77, 100), (2, 300, 33),
+                    (1, 256, 64), (2, 770, 40)]:
         a = torch.rand(b, s, w, generator=g).to(cuda, dtype)
         x = torch.randn(b, s, w, generator=g).to(cuda, dtype)
         h0 = torch.randn(b, w, generator=g).to(cuda)
+        hs = torch.randn(b, s, w, generator=g).to(cuda)
         torch.testing.assert_close(lru_scan_reverse(a, x, h0),
                                    lru_scan_reverse_ref(a, x, h0),
                                    rtol=1e-5, atol=1e-5)
+        got = lru_scan_reverse(a, x, h0, h=hs, h_init=h0)
+        for gg, want in zip(got, lru_scan_reverse_ref(a, x, h0, hs, h0)):
+            torch.testing.assert_close(gg, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
