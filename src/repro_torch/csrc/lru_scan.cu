@@ -42,16 +42,17 @@
 //     kernels/lru_scan/ref.py::lru_scan_chunked_ref emulates this order
 //     exactly (every fmaf and product rounded once, as __fmaf_rn and
 //     __fmul_rn do here).
-// Chunks of 256 steps on 8 warps (32 rows a warp, 98 registers a thread
-// in fp32) ran best of 128, 256 and 512 steps: 0.1455 ms at training's
-// 2 x 4,096 x 4,096 (83 % of the byte bound), 0.2790 ms at serving's
-// B = 4 (86 %) and 0.2776 ms at one prompt of 16,384 steps (87 %), where
-// the one-warp walk took 0.2671, 0.2871 and 1.0397 ms and a torch.add
-// moving the same bytes 0.1337, 0.2636 and 0.2638 ms
-// (launch/backward_check.py before and after the change, NVIDIA H100 80GB
-// HBM3, 700 W). Rows are loaded and stored in time order, full warps
-// without guards: walked back from the last step, the reverse held 162
-// registers and ran 0.1590 ms at training's shape.
+// Chunks of 256 steps on 8 warps (ROWS = 32 rows a warp, 98 registers a
+// thread in fp32) ran best of 128, 256 and 512 steps when the kernel was
+// built for all three, so they are the one configuration built now:
+// 0.1455 ms at training's 2 x 4,096 x 4,096 (83 % of the byte bound),
+// 0.2790 ms at serving's B = 4 (86 %) and 0.2776 ms at one prompt of
+// 16,384 steps (87 %), where the one-warp walk took 0.2671, 0.2871 and
+// 1.0397 ms and a torch.add moving the same bytes 0.1337, 0.2636 and
+// 0.2638 ms (launch/backward_check.py before and after the change, NVIDIA
+// H100 80GB HBM3, 700 W). Rows are loaded and stored in time order, full
+// warps without guards: walked back from the last step, the reverse held
+// 162 registers and ran 0.1590 ms at training's shape.
 //
 // Reverse (the `REVERSE` template flag, the autograd backward's launch):
 // chunks run from the last down and each chunk's steps from its last,
@@ -73,6 +74,10 @@
 #include <stdint.h>
 
 namespace {
+
+// time steps a warp holds in registers, and warps a block: a chunk is
+// CHUNK = ROWS * WARPS steps (kernels/lru_scan/lru_scan.py's CHUNK, WARPS)
+constexpr int ROWS = 32, WARPS = 8, CHUNK = ROWS * WARPS;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -113,7 +118,7 @@ __device__ __forceinline__ float wait_carry(const unsigned long long* slot,
 // a warp's rows into registers, ar and br (and with DA hp = h_{t-1})
 // indexed by processing step; GUARD keeps only rows lo .. lo + mine - 1
 // (a full warp takes the unguarded copy)
-template <bool GUARD, bool REVERSE, bool DA, int ROWS, int HP, typename T>
+template <bool GUARD, bool REVERSE, bool DA, int HP, typename T>
 __device__ __forceinline__ void load_rows(float (&ar)[ROWS],
                                           float (&br)[ROWS], float (&hp)[HP],
                                           const T* a, const T* b,
@@ -140,7 +145,7 @@ __device__ __forceinline__ void load_rows(float (&ar)[ROWS],
 }
 
 // the walk from the warp's carry-in v, storing the rows load_rows kept
-template <bool GUARD, bool REVERSE, bool DA, int ROWS, int HP>
+template <bool GUARD, bool REVERSE, bool DA, int HP>
 __device__ __forceinline__ void walk_rows(float v, const float (&ar)[ROWS],
                                           const float (&br)[ROWS],
                                           const float (&hp)[HP], float* out,
@@ -157,7 +162,7 @@ __device__ __forceinline__ void walk_rows(float v, const float (&ar)[ROWS],
   }
 }
 
-template <typename T, bool REVERSE, bool DA, int ROWS, int WARPS>
+template <typename T, bool REVERSE, bool DA>
 __global__ void __launch_bounds__(WARPS * 32)
     lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const float* __restrict__ h0, float* __restrict__ out,
@@ -166,7 +171,6 @@ __global__ void __launch_bounds__(WARPS * 32)
                     unsigned long long* __restrict__ carries,
                     unsigned int* __restrict__ ticket, int64_t s, int64_t w,
                     int64_t groups, int64_t chains, int64_t chunks) {
-  constexpr int CHUNK = ROWS * WARPS;
   __shared__ float pair_a[WARPS][32], pair_h[WARPS][32], carry_in[32];
   __shared__ unsigned int my_ticket;
   if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u);
@@ -245,53 +249,36 @@ __global__ void __launch_bounds__(WARPS * 32)
     walk_rows<true, REVERSE, DA>(v, ar, br, hp, out, da, at, w, lo, mine);
 }
 
-template <typename T, bool REVERSE, bool DA, int ROWS, int WARPS>
+template <typename T, bool REVERSE, bool DA>
 int launch(const void* a, const void* b, const float* h0, float* out,
            const float* h, const float* h_init, float* da, void* work,
            int64_t batch, int64_t s, int64_t w, cudaStream_t stream) {
-  constexpr int CHUNK = ROWS * WARPS;
   const int64_t groups = (w + 31) / 32, chains = batch * groups;
   const int64_t chunks = (s + CHUNK - 1) / CHUNK;
   // the workspace: the ticket in its first 64-bit word, then one word per
   // (chunk, chain, channel)
   unsigned int* ticket = static_cast<unsigned int*>(work);
   unsigned long long* carries = static_cast<unsigned long long*>(work) + 1;
-  lru_scan_kernel<T, REVERSE, DA, ROWS, WARPS>
+  lru_scan_kernel<T, REVERSE, DA>
       <<<(unsigned)(chains * chunks), WARPS * 32, 0, stream>>>(
           static_cast<const T*>(a), static_cast<const T*>(b), h0, out, h,
           h_init, da, carries, ticket, s, w, groups, chains, chunks);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int ROWS, int WARPS>
+template <typename T>
 int launch_kind(int reverse, const void* a, const void* b, const float* h0,
                 float* out, const float* h, const float* h_init, float* da,
                 void* work, int64_t batch, int64_t s, int64_t w,
                 cudaStream_t st) {
   if (!reverse)
-    return launch<T, false, false, ROWS, WARPS>(a, b, h0, out, h, h_init, da,
-                                                work, batch, s, w, st);
+    return launch<T, false, false>(a, b, h0, out, h, h_init, da, work, batch,
+                                   s, w, st);
   if (da)
-    return launch<T, true, true, ROWS, WARPS>(a, b, h0, out, h, h_init, da,
-                                              work, batch, s, w, st);
-  return launch<T, true, false, ROWS, WARPS>(a, b, h0, out, h, h_init, da,
-                                             work, batch, s, w, st);
-}
-
-template <typename T>
-int launch_config(int chunk, int warps, int reverse, const void* a,
-                  const void* b, const float* h0, float* out, const float* h,
-                  const float* h_init, float* da, void* work, int64_t batch,
-                  int64_t s, int64_t w, cudaStream_t st) {
-#define LRU_CONFIG(C, NW)                                                   \
-  if (chunk == C && warps == NW)                                            \
-    return launch_kind<T, C / NW, NW>(reverse, a, b, h0, out, h, h_init, da, \
-                                      work, batch, s, w, st);
-  LRU_CONFIG(128, 8)
-  LRU_CONFIG(256, 8)
-  LRU_CONFIG(512, 16)
-#undef LRU_CONFIG
-  return (int)cudaErrorInvalidValue;
+    return launch<T, true, true>(a, b, h0, out, h, h_init, da, work, batch,
+                                 s, w, st);
+  return launch<T, true, false>(a, b, h0, out, h, h_init, da, work, batch, s,
+                                w, st);
 }
 
 }  // namespace
@@ -299,16 +286,13 @@ int launch_config(int chunk, int warps, int reverse, const void* a,
 // dtype of a and b: 0 = float32, 1 = bfloat16. reverse: 0 runs time
 // forward, 1 backward (see the top); with reverse, a non-null `da` also
 // reads h and h_init and writes da. `work`: the wrapper's zeroed workspace
-// of 1 + batch * ceil(w / 32) * ceil(s / chunk) * 32 64-bit words. chunk
-// and warps: one of the built configurations (128, 8), (256, 8) (the
-// wrapper's) and (512, 16); any other returns cudaErrorInvalidValue.
+// of 1 + batch * ceil(w / 32) * ceil(s / CHUNK) * 32 64-bit words.
 // Returns a cudaError_t.
 extern "C" int lru_scan_launch(int dtype, int reverse, const void* a,
                                const void* b, const void* h0, void* out,
                                const void* h, const void* h_init, void* da,
                                void* work, int64_t batch, int64_t s,
-                               int64_t w, int chunk, int warps,
-                               void* stream) {
+                               int64_t w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* h0p = static_cast<const float*>(h0);
   const float* hp = static_cast<const float*>(h);
@@ -316,8 +300,8 @@ extern "C" int lru_scan_launch(int dtype, int reverse, const void* a,
   float* op = static_cast<float*>(out);
   float* dap = static_cast<float*>(da);
   if (dtype == 0)
-    return launch_config<float>(chunk, warps, reverse, a, b, h0p, op, hp,
-                                hip, dap, work, batch, s, w, st);
-  return launch_config<__nv_bfloat16>(chunk, warps, reverse, a, b, h0p, op,
-                                      hp, hip, dap, work, batch, s, w, st);
+    return launch_kind<float>(reverse, a, b, h0p, op, hp, hip, dap, work,
+                              batch, s, w, st);
+  return launch_kind<__nv_bfloat16>(reverse, a, b, h0p, op, hp, hip, dap,
+                                    work, batch, s, w, st);
 }

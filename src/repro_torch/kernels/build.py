@@ -61,10 +61,10 @@ SIGNATURES = {
                  _I64, _I64, _I64, _I64, _I64, ctypes.POINTER(_I64), _I64,
                  ctypes.c_float, _C]),
     # (dtype, reverse, a, b, h0, out, h or null, h_init or null, da or
-    # null, workspace, B, S, W, chunk, warps, stream)
+    # null, workspace, B, S, W, stream)
     "lru_scan": ("lru_scan_launch",
                  [_INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _I64, _I64,
-                  _I64, _INT, _INT, _C]),
+                  _I64, _C]),
 }
 
 # one build at a time; taken under the backend's capture lock when warmup

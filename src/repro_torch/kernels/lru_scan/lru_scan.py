@@ -6,16 +6,13 @@ import torch
 
 from repro_torch.kernels import build, device
 
-#: time steps of a chunk and warps of a block the wrapper launches with
-#: (``lru_scan_chunked_ref`` emulates the association they give)
+#: time steps of a chunk and warps of a block, the kernel's compile-time
+#: constants (``csrc/lru_scan.cu``); ``lru_scan_chunked_ref`` emulates the
+#: association they give
 CHUNK, WARPS = 256, 8
-#: the (chunk, warps) configurations the kernel is built for: the
-#: wrapper's, and a chunk half and twice as long for comparison
-#: (``launch/backward_check.py`` times each)
-CONFIGS = ((128, 8), (256, 8), (512, 16))
 
 
-def workspace_words(batch: int, s: int, w: int, chunk: int) -> int:
+def workspace_words(batch: int, s: int, w: int, chunk: int = CHUNK) -> int:
     """64-bit words of the kernel's workspace: the ticket, then a carry
     slot per (chunk, batch row, channel) with channels padded to 32."""
     return 1 + batch * -(-w // 32) * 32 * -(-s // chunk)
@@ -23,8 +20,7 @@ def workspace_words(batch: int, s: int, w: int, chunk: int) -> int:
 
 def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                   reverse: bool = False, h: torch.Tensor | None = None,
-                  h_init: torch.Tensor | None = None, chunk: int = CHUNK,
-                  warps: int = WARPS):
+                  h_init: torch.Tensor | None = None):
     """All states of h_t = a_t h_{t-1} + b_t on the card, or with
     ``reverse`` of y_t = a_{t+1} y_{t+1} + b_t from the last step down: a,
     b contiguous (B, S, W) of one type (fp32/bf16), h0 contiguous (B, W)
@@ -35,7 +31,7 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     batch, s, w = a.shape
     out = torch.empty((batch, s, w), dtype=torch.float32, device=a.device)
     da = torch.empty_like(out) if h is not None else None
-    work = torch.zeros(workspace_words(batch, s, w, chunk),
+    work = torch.zeros(workspace_words(batch, s, w),
                        dtype=torch.int64, device=a.device)
     lib = build.load("lru_scan")
     with torch.cuda.device(a.device):
@@ -45,6 +41,6 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
             None if h is None else h.data_ptr(),
             None if h_init is None else h_init.data_ptr(),
             None if da is None else da.data_ptr(), work.data_ptr(), batch,
-            s, w, chunk, warps, device.stream_ptr(a))
+            s, w, device.stream_ptr(a))
     build.check("lru_scan", err)
     return out if da is None else (out, da)

@@ -14,8 +14,8 @@ over max |want| of each gradient, in bf16 also RMS(err) over RMS(want),
 the lse error; for lru_scan each output's max error and whether its bits
 equal ``lru_scan_chunked_ref``'s and a second launch's), the scan's sweep
 (``LRU_SWEEP``: each direction, the fused adjoint and the unfused
-yardstick beside their byte bounds and the copy ceiling) and its time at
-each built chunk configuration, one line of mean milliseconds at the
+yardstick beside their byte bounds and the copy ceiling), one line of
+mean milliseconds at the
 training shapes, with scaled_dot_product_attention's backward on the same
 operands (the yardstick, never the port's path) and swa_bwd's bound,
 swa_bwd's time with a kv head's query heads split over 1, 2, 4 and 8
@@ -38,8 +38,7 @@ import torch
 
 from repro_torch.common.device import explicit_device
 from repro_torch.kernels import build
-from repro_torch.kernels.lru_scan.lru_scan import CHUNK, CONFIGS, WARPS, \
-    lru_scan_cuda
+from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
 from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
 from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
     lru_scan_ref, lru_scan_reverse_ref
@@ -153,10 +152,8 @@ def lru_case(a, x, h0) -> dict:
                     lru_scan_reverse_ref(a, x, h0, hs, h0)))
     want["h"] = lru_scan_ref(a, x, h0)
     emul = dict(zip(("lambda", "da"), lru_scan_chunked_ref(
-        a, x, h0, CHUNK, WARPS, reverse=True,
-        h=hs, h_init=h0)))
-    emul["h"] = lru_scan_chunked_ref(a, x, h0, CHUNK,
-                                     WARPS)
+        a, x, h0, CHUNK, WARPS, reverse=True, h=hs, h_init=h0)))
+    emul["h"] = lru_scan_chunked_ref(a, x, h0, CHUNK, WARPS)
     again = (lru_scan(a, x, h0),) + lru_scan_reverse(a, x, h0, h=hs,
                                                       h_init=h0)
     rec = {"dtype": str(a.dtype), "shape": list(a.shape), "ok": True}
@@ -218,34 +215,6 @@ def lru_sweep(rn) -> list[dict]:
         del a, g, h0, hs, o
         torch.cuda.empty_cache()
     return out
-
-
-def lru_configs(rn) -> None:
-    """Each built (chunk, warps) configuration of the scan at training's,
-    serving's and the long prompt's shapes: forward, reverse and fused
-    adjoint mean ms over 20 launches, and the forward's bits against its
-    emulation at training's shape."""
-    for b, s, w in ((2, 4096, 4096), (4, 4096, 4096), (1, 16384, 4096)):
-        a = torch.sigmoid(rn(b, s, w))
-        g = rn(b, s, w)
-        h0 = rn(b, w)
-        hs = lru_scan(a, g, h0)
-        for chunk, warps in CONFIGS:
-            def run(reverse, da=False):
-                return lru_scan_cuda(
-                    a, g, h0, reverse, hs if da else None,
-                    h0 if da else None, chunk=chunk, warps=warps)
-            rec = {"lru_config": [chunk, warps], "shape": [b, s, w],
-                   "fwd_ms": _ms(lambda: run(False), 20),
-                   "rev_ms": _ms(lambda: run(True), 20),
-                   "adjoint_ms": _ms(lambda: run(True, True), 20)}
-            if b == 2:
-                rec["emulated_bits"] = bool(torch.equal(
-                    run(False), lru_scan_chunked_ref(a, g, h0, chunk,
-                                                     warps)))
-            print(json.dumps(rec), flush=True)
-        del a, g, h0, hs
-        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -312,7 +281,6 @@ def main(argv=None) -> int:
 
     if lru_on:
         lru_sweep(rn)
-        lru_configs(rn)
     if not swa_on:
         print("ALL_OK" if ok else "FAILED", flush=True)
         return 0 if ok else 1

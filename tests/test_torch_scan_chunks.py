@@ -7,7 +7,9 @@ the port's sequential plain versions, at the chunk edges (S = 1, S short
 of a chunk, S off and on a chunk's end, W = 33, a = 0 on a chunk's
 first step, a nonzero h0), fp32 and bf16. The card holds the kernel's
 bits to the emulation's (tests/test_torch_cuda.py, chip_smoke.py)."""
+import re
 from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,13 +22,13 @@ from repro.kernels.lru_scan.ref import lru_scan_ref as jax_lru_ref
 from repro_torch import interop
 from repro_torch.kernels import device
 from repro_torch.kernels.lru_scan import ops as lru_ops
-from repro_torch.kernels.lru_scan.lru_scan import CHUNK, CONFIGS, WARPS, \
+from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS, \
     workspace_words
 from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
 from repro_torch.kernels.lru_scan.ref import _fma32, lru_scan_chunked_ref, \
     lru_scan_ref, lru_scan_reverse_ref
 
-# (B, S, W, chunk, warps, zero_a): the kernel's configurations at their
+# (B, S, W, chunk, warps, zero_a): the kernel's configuration at its
 # edges, then small chunks so a short S crosses many of them
 CASES = [
     (2, 1, 64, CHUNK, WARPS, False),          # one step
@@ -213,13 +215,24 @@ def test_backward_takes_da_from_the_reverse_launch(monkeypatch):
 
 def test_workspace_and_grid_follow_the_chunks():
     """The workspace holds the ticket and one carry word per (chunk, batch
-    row, channel padded to 32); the grid's x axis takes up to 2**31 - 1
+    row, channel padded to 32), chunks of the kernel's 256 steps unless
+    told otherwise; the grid's x axis takes up to 2**31 - 1
     blocks, y and z 65,535."""
     assert workspace_words(2, 4096, 4096, 256) == 1 + 2 * 4096 * 16
     assert workspace_words(3, 77, 33, 16) == 1 + 3 * 64 * 5
-    assert (CHUNK, WARPS) in CONFIGS
+    assert workspace_words(1, 257, 32) == 1 + 32 * 2
     device.require_grid("k", blocks=2 ** 31 - 1, axis="x")
     with pytest.raises(ValueError, match="x axis"):
         device.require_grid("k", blocks=2 ** 31, axis="x")
     with pytest.raises(ValueError, match="y axis"):
         device.require_grid("k", batch=65_536)
+
+
+def test_chunk_constants_are_the_kernels():
+    """The launcher's CHUNK and WARPS, which the emulation and the
+    workspace use, are the compile-time constants of the CUDA source."""
+    src = (Path(lru_ops.__file__).parents[2] / "csrc" / "lru_scan.cu")
+    m = re.search(r"constexpr int ROWS = (\d+), WARPS = (\d+), "
+                  r"CHUNK = ROWS \* WARPS;", src.read_text())
+    assert m is not None
+    assert (int(m[1]) * int(m[2]), int(m[2])) == (CHUNK, WARPS)
