@@ -42,10 +42,19 @@ local) cycle: the step-0 gradient of every parameter (through the swa
 and lru_scan autograd Functions, whose backward passes are the swa_bwd
 kernel and lru_scan's reverse launch), a GaLore projector refresh through
 the engine's randomized SVD, 8 AdamW steps at B = 2, S = 4,096, and the
-offloaded linear probe on the trained trunk. Before the main path it
-also holds the two backward kernels against their plain versions at the
-JAX sweeps and the training shapes, and the reduced model's loss and
-gradients on the card against the CPU.
+offloaded linear probe on the trained trunk. Then it serves qwen3-4b at
+its published widths, all 36 layers, with RecurrentGemma's traffic,
+every prefill's global attention on the swa kernel at window = S, and
+holds a full forward against prefill + decode; and runs each other
+decoder-only family (qwen3-4b-sw, stablelm-1.6b, rwkv6-1.6b,
+codeqwen1.5-7b, and yi-34b, deepseek-v2-lite-16b and deepseek-v2-236b
+cut in depth to what one card holds) at its published widths through the
+serving engine, one 2,048-token request each, with the same check.
+Before the main path it also holds the two backward kernels against
+their plain versions at the JAX sweeps and the training shapes, swa at
+window = S at the dense families' shapes, and the reduced RecurrentGemma,
+qwen3-4b, rwkv6-1.6b and deepseek-v2-lite-16b's loss and gradients on the
+card against the CPU.
 
 Each phase prints JSON lines; a failing check raises and the script exits
 non-zero. It needs one CUDA card and imports nothing of JAX or of the JAX
@@ -55,6 +64,7 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -109,6 +119,22 @@ LM_LONG_S = 16_384
 # prefill + decode against a full forward: 3e-2 of max |logit|
 # (tests/test_models_smoke.py reads 3e-2, here relative to scale)
 LM_CONSISTENCY_TOL = 3e-2
+
+# serving qwen3-4b (published widths, 36 layers): RecurrentGemma's traffic,
+# every prefill's attention on the swa kernel with window = S
+DENSE_ARCH = "qwen3-4b"
+# each other decoder-only family at published widths: one request of
+# FAMILY_S tokens, FAMILY_NEW new tokens; at the most layers whose fp32
+# parameters fit FAMILY_BUDGET_BYTES, half the card (the rest holds the
+# bf16 casts, the caches and the activations)
+FAMILIES = ("qwen3-4b-sw", "stablelm-1.6b", "rwkv6-1.6b", "codeqwen1.5-7b",
+            "yi-34b", "deepseek-v2-lite-16b", "deepseek-v2-236b")
+FAMILY_S, FAMILY_NEW = 2_048, 8
+FAMILY_BUDGET_BYTES = 40e9
+# swa at window = S at the dense families' shapes on the path: (arch,
+# batch, sequence)
+CAUSAL_SHAPES = (("qwen3-4b", LM_MAX_BATCH, LM_PROMPT_MAX),
+                 ("stablelm-1.6b", 1, FAMILY_S), ("yi-34b", 1, FAMILY_S))
 
 # tolerances of the JAX package's kernel tests (tests/test_kernels.py,
 # tests/test_extensions.py, tests/test_lru_loss_kernels.py): rtol, and
@@ -172,6 +198,7 @@ KERNEL_DESIGN = {
 # keys a kernel's record may add to its entry in the kernels line
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
                  "copy_ceiling_ms", "train_shape", "long_prompt",
+                 "causal_shapes",
                  "unfused_ms",
                  "lambda_only_ms", "lambda_only_bound_ms")
 
@@ -327,22 +354,52 @@ def check_test_shapes() -> None:
     emit({"phase": "kernel_test_shapes", "cases": n_checked})
 
 
+def _swa_case(rng, dt, dn, s, window, h, kh, d) -> None:
+    """swa on (2, s, h, d) queries and (2, s, kh, d) keys and values as
+    (B, S, H, D) views against its plain version (bf16 also to the main
+    shape's limit), and swa_bwd from the kernel's own o and lse against
+    its plain version on fp32 copies of the same operands."""
+    import torch
+    from repro_torch.kernels.swa.ops import swa_attention, \
+        swa_backward, swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref, \
+        swa_forward_ref, swa_ref
+    q = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
+    k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
+            for _ in range(2))
+    got = swa_attention(q, k, v, window=window)
+    close("swa", got, swa_ref(q, k, v, window), dn, absolute_atol=True)
+    if dt == torch.bfloat16:
+        ratio = swa_excess(got, swa_ref(q.float(), k.float(), v.float(),
+                                        window))[1]
+        if not ratio <= 1.0:
+            raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
+                                 f"{window}: {ratio:.3f} x the limit")
+    o, lse = swa_forward(q, k, v, window, with_lse=True)
+    want_lse = swa_forward_ref(q.float(), k.float(), v.float(), window)[1]
+    close_grad("swa_lse", lse, want_lse, 2e-5)
+    dout = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
+    got = swa_backward(q, k, v, o, lse, dout, window=window)
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
+                            lse, dout.float(), window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window}", g, w,
+                   GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
+
+
 def check_lm_test_shapes(rng, dt, dn) -> int:
     """swa and lru_scan at the JAX sweeps (tests/test_kernels.py,
     tests/test_lru_loss_kernels.py), plus S not a multiple of 64, MQA,
-    window >= S, S = 300 on (B, S, H, D) views at every head dim, and one
-    query head a kv head: fp32 through the CUDA-core route, bf16 through
-    the tensor-core route, which is also held to the main shape's limit
-    (swa_excess)."""
+    window >= S, S = 300 on (B, S, H, D) views at every head dim, one
+    query head a kv head, and global attention (window >= S) at head dims
+    64 and 128 with GQA groups of 1, 4 and 7: fp32 through the CUDA-core
+    route, bf16 through the tensor-core route, which is also held to the
+    main shape's limit (swa_excess)."""
     import torch
     from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
     from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
     from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
         lru_scan_ref, lru_scan_reverse_ref
-    from repro_torch.kernels.swa.ops import swa_attention, \
-        swa_backward, swa_forward
-    from repro_torch.kernels.swa.ref import swa_backward_ref, \
-        swa_forward_ref, swa_ref
     n = 0
     for s, window, kh, d in [(128, 32, 2, 32), (256, 96, 2, 32),
                              (256, 256, 2, 32), (512, 128, 2, 32),
@@ -350,30 +407,14 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
                              (128, 1000, 2, 32), (300, 100, 1, 32),
                              (300, 100, 1, 64), (300, 100, 1, 128),
                              (300, 100, 1, 256), (200, 50, 4, 64)]:
-        q = _randn(rng, (2, s, 4, d), dt).transpose(1, 2)
-        k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
-                for _ in range(2))
-        got = swa_attention(q, k, v, window=window)
-        close("swa", got, swa_ref(q, k, v, window), dn, absolute_atol=True)
-        if dt == torch.bfloat16:
-            ratio = swa_excess(got, swa_ref(q.float(), k.float(), v.float(),
-                                            window))[1]
-            if not ratio <= 1.0:
-                raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
-                                     f"{window}: {ratio:.3f} x the limit")
-        # B4b: the backward from the kernel's own o and lse, against its
-        # plain version on fp32 copies of the same operands
-        o, lse = swa_forward(q, k, v, window, with_lse=True)
-        want_lse = swa_forward_ref(q.float(), k.float(), v.float(),
-                                   window)[1]
-        close_grad("swa_lse", lse, want_lse, 2e-5)
-        dout = _randn(rng, (2, s, 4, d), dt).transpose(1, 2)
-        got = swa_backward(q, k, v, o, lse, dout, window=window)
-        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
-                                lse, dout.float(), window)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window}", g,
-                       w, GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
+        _swa_case(rng, dt, dn, s, window, 4, kh, d)
+        n += 1
+    # global attention (window >= S), the dense families' layers: head
+    # dims 64 and 128, GQA groups of 1, 4 and 7 (yi-34b's 56 heads over 8)
+    for s, window, h, kh, d in [(200, 200, 4, 4, 64), (300, 300, 8, 2, 128),
+                                (256, 1000, 14, 2, 128), (150, 150, 7, 1, 64),
+                                (320, 320, 32, 8, 128)]:
+        _swa_case(rng, dt, dn, s, window, h, kh, d)
         n += 1
     # the JAX sweep, then the chunks' edges: S = 1, S short of a chunk,
     # off a chunk's end and on it, W off the 32-channel group (33, 100)
@@ -654,6 +695,63 @@ def check_lm_main_shapes() -> dict:
         "copy_ceiling_ms": cuda_time_ms(lambda: torch.add(a, x, out=o), 20)}
     del a, x, h0, o
     torch.cuda.empty_cache()
+    out["swa"]["causal_shapes"] = check_causal_shapes()
+    return out
+
+
+def check_causal_shapes() -> list:
+    """swa with window = S, the route of the dense families' global
+    layers, at CAUSAL_SHAPES: qwen3-4b's served 4 x 32 x 4,096 x 128 over
+    8 kv heads, stablelm-1.6b's D = 64 over 32 kv heads and yi-34b's 56
+    heads over 8 (a group of 7), bf16 (B, S, H, D) views. Each held to the
+    SWA_RTOL / SWA_ATOL_RMS limit against the plain version on fp32
+    copies (which must reject a softmax scale 10 % high), and timed beside
+    the plain version, one causal ``scaled_dot_product_attention`` call
+    (k, v repeated to the query heads beforehand) and the bound: 4 B H D
+    S (S + 1) / 2 operations at the bf16 rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    out = []
+    for n, (arch, b, s) in enumerate(CAUSAL_SHAPES):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = (_randn_on_card((b, s, heads, d), 40 + 3 * n + i)
+                   .bfloat16().transpose(1, 2)
+                   for i, heads in enumerate((h, kh, kh)))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        want = swa_ref(qf, kf, vf, s)
+        err, ratio = swa_excess(swa_attention(q, k, v, window=s), want)
+        fault = swa_excess(swa_ref(qf * 1.1, kf, vf, s).bfloat16(), want)[1]
+        del qf, kf, vf, want
+        if not ratio <= 1.0:
+            raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window {s}:"
+                                 f" max abs err {err:.3e}, {ratio:.3f} x "
+                                 "the limit")
+        if not fault > 1.0:
+            raise AssertionError(f"swa's limit passes a scale 10 % high at "
+                                 f"{arch}'s shape: {fault:.3f}")
+        kx, vx = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+        nbytes = 2.0 * 2 * (b * h * s * d + b * kh * s * d)
+        bound, by = bound_ms(nbytes, 4.0 * b * h * d * s * (s + 1) / 2,
+                             BF16_FLOPS)
+        out.append({
+            "arch": arch, "shape": [b, h, kh, s, d, s], "dtype": "bfloat16",
+            "max_abs_err": err, "err_over_limit": ratio,
+            "scale_fault_over_limit": fault,
+            "kernel_ms": cuda_time_ms(lambda: swa_attention(q, k, v,
+                                                            window=s)),
+            "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, s)),
+            "library_ms": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                       is_causal=True)),
+            "bound_ms": bound, "bound_by": by,
+            "seconds": time.perf_counter() - t0})
+        del q, k, v, kx, vx
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1840,15 +1938,19 @@ def phase_server_cli(want_small_w) -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: serve RecurrentGemma-9B
 # ---------------------------------------------------------------------------
-def phase_serve(counters) -> tuple:
-    """Build RecurrentGemma-9B at its published widths on the card, serve
-    LM_REQUESTS requests through the port's ServingEngine, and check what
-    came out. Returns (model, the launch counts of the serving run)."""
+def phase_serve(counters, arch: str = LM_ARCH) -> tuple:
+    """Build ``arch`` (RecurrentGemma-9B; qwen3-4b) at its published widths
+    on the card, serve LM_REQUESTS requests through the port's
+    ServingEngine, and check what came out: each prefill launches swa once
+    per attention layer (window = S on global layers) and lru_scan once
+    per recurrent layer, decode launches nothing. Returns (model, the
+    launch counts of the serving run)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import DecoderLM
     from repro_torch.serve.engine import Request, ServingEngine
-    cfg = get_config(LM_ARCH)
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = DecoderLM(cfg, device=DEVICE,
@@ -1872,8 +1974,10 @@ def phase_serve(counters) -> tuple:
     serve_s = time.perf_counter() - t0
     launches = {k: c.value for k, c in counters.items()}
 
-    want = {"swa": 2 * kinds.count("local_attn"),
-            "lru_scan": 2 * kinds.count("recurrent")}
+    waves = engine.stats["prefills"]
+    want = {"swa": waves * (kinds.count("local_attn")
+                            + kinds.count("attention")),
+            "lru_scan": waves * kinds.count("recurrent")}
     if {k: launches[k] for k in want} != want or \
             any(launches[k] for k in launches if k not in want):
         raise AssertionError(f"serving launched {launches}, want {want}")
@@ -1881,12 +1985,12 @@ def phase_serve(counters) -> tuple:
     if any(len(t) != LM_NEW_TOKENS for t in toks) or \
             not all(0 <= x < cfg.vocab_size for t in toks for x in t):
         raise AssertionError(f"served tokens out of shape or range: {toks}")
-    if engine.stats["prefills"] != 2 or \
+    if waves != 2 or \
             engine.stats["decode_steps"] != 2 * (LM_NEW_TOKENS - 1):
         raise AssertionError(f"serving stats {engine.stats}")
     new_tokens = sum(len(t) for t in toks)
     steps = engine.stats["decode_steps"]
-    emit({"phase": "serve", "arch": LM_ARCH, "layers": len(kinds),
+    emit({"phase": "serve", "arch": arch, "layers": len(kinds),
           "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
           "params": n_params, "param_bytes": 4 * n_params,
           "init_s": init_s, "requests": len(done),
@@ -1898,43 +2002,208 @@ def phase_serve(counters) -> tuple:
           "new_tokens_per_s": new_tokens / serve_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "first_tokens": [t[:4] for t in toks],
-          "launches": launches})
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
     return model, launches
 
 
-def phase_consistency(model) -> dict:
-    """One S = 4,096 request: the last-position logits of a full forward
-    (every layer through the kernels) against prefill(S - 1) and one
-    decode step (the last token through the plain ring-cache attention
-    and the single recurrence step)."""
+@contextlib.contextmanager
+def moe_without_drops(model):
+    """``model``'s MoE layers, for the duration, with room in every
+    expert for every token (capacity factor E / k). With the published
+    factor a full forward drops (token, expert) pairs past an expert's
+    capacity in token order, the last token's first, and a decode step of
+    one token never drops one: the two paths compute different functions
+    by design, the JAX package's too. Yields the factor (None without MoE
+    layers)."""
+    import dataclasses
+    from repro_torch.nn.moe import MoE
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    if not layers:
+        yield None
+        return
+    cfg = layers[0].cfg
+    factor = cfg.moe.num_experts / cfg.moe.top_k
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    try:
+        for m in layers:
+            m.cfg = roomy
+        yield factor
+    finally:
+        for m in layers:
+            m.cfg = cfg
+
+
+def _full_vs_decode(model, toks) -> tuple:
+    """(max |full - decode|, max |full|, argmax full, argmax decode) of the
+    last position's logits: a full forward of ``toks`` (1, S) against
+    prefill(S - 1) and one decode step."""
     import torch
-    cfg = model.cfg
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LM_S)))
-    toks = toks.to(DEVICE)
     with torch.inference_mode():
         x, _ = model(toks)
         full = model.unembed(x[:, -1:])[:, 0].float()
         del x
-        _, state = model.prefill(toks[:, :-1], seq_len=LM_S)
+        _, state = model.prefill(toks[:, :-1], seq_len=toks.shape[1])
         step, _ = model.decode_step(state, toks[:, -1:])
         step = step.float()
     del state
     if not (bool(torch.isfinite(full).all()) and
             bool(torch.isfinite(step).all())):
         raise AssertionError("non-finite logits")
-    scale = float(full.abs().max())
-    err = float((full - step).abs().max())
-    same = int(full.argmax()) == int(step.argmax())
-    rec = {"phase": "consistency", "seq": LM_S, "layers": cfg.num_layers,
-           "max_abs_logit": scale, "max_abs_diff": err,
-           "limit": LM_CONSISTENCY_TOL * scale, "argmax_full":
-           int(full.argmax()), "argmax_decode": int(step.argmax())}
+    return (float((full - step).abs().max()), float(full.abs().max()),
+            int(full.argmax()), int(step.argmax()))
+
+
+def phase_consistency(model, seq: int = LM_S) -> dict:
+    """One request of ``seq`` tokens: the last-position logits of a full
+    forward (every attention and recurrent layer through the kernels)
+    against prefill(seq - 1) and one decode step (the last token through
+    the plain cache attention, MLA's absorbed decode, the single
+    recurrence step), within LM_CONSISTENCY_TOL of max |logit| and the
+    same argmax. A model with MoE layers is compared without capacity
+    drops (:func:`moe_without_drops`): in its bf16 compute within the
+    limit, and again in fp32 compute within the limit and with the same
+    argmax. In bf16 the router's logits for the last token, a product
+    over ``seq`` rows in the full forward and over one in decode, could
+    round a near tie of two experts either way, a discrete choice the two
+    paths may make apart; the bf16 argmaxes are reported."""
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq)))
+    toks = toks.to(DEVICE)
+    rec = {"phase": "consistency", "arch": cfg.name, "seq": seq,
+           "layers": cfg.num_layers}
+    fails = []
+    with moe_without_drops(model) as factor:
+        if factor is not None:
+            rec["moe_capacity_factor"] = factor
+            err, scale, top_full, top_step = _full_vs_decode(model, toks)
+            rec.update({"bf16_max_abs_diff": err,
+                        "bf16_max_abs_logit": scale,
+                        "bf16_limit": LM_CONSISTENCY_TOL * scale,
+                        "bf16_argmax_full": top_full,
+                        "bf16_argmax_decode": top_step})
+            fails.append(not err <= LM_CONSISTENCY_TOL * scale)
+            model.compute_dtype = torch.float32
+            rec["compute"] = "float32"
+        try:
+            err, scale, top_full, top_step = _full_vs_decode(model, toks)
+        finally:
+            model.compute_dtype = getattr(torch, cfg.dtype)
+    rec.update({"max_abs_logit": scale, "max_abs_diff": err,
+                "limit": LM_CONSISTENCY_TOL * scale,
+                "argmax_full": top_full, "argmax_decode": top_step})
     emit(rec)
-    if not (err <= LM_CONSISTENCY_TOL * scale and same):
+    if any(fails) or not (err <= LM_CONSISTENCY_TOL * scale
+                          and top_full == top_step):
         raise AssertionError(f"prefill + decode disagrees with the full "
                              f"forward: {rec}")
     return rec
+
+
+def layer_bytes(cfg) -> list:
+    """fp32 bytes of ``cfg``'s parameters outside its layers, then of each
+    layer, from its blocks built on the meta device (nothing
+    allocated)."""
+    import torch
+    from repro_torch.models.blocks import make_block, uses_moe
+    per_block = {}
+    out = [4 * (cfg.d_model * (2 if cfg.use_layernorm else 1)    # final norm
+                + cfg.vocab_size * cfg.d_model
+                * (1 if cfg.tie_embeddings else 2))]
+    for n, kind in enumerate(cfg.block_kinds()):
+        key = (kind, uses_moe(cfg, n))
+        if key not in per_block:
+            block = make_block(cfg, kind, generator=torch.Generator(),
+                               device="meta", use_moe=key[1])
+            per_block[key] = 4 * sum(p.numel() for p in block.parameters())
+        out.append(per_block[key])
+    return out
+
+
+def phase_families(counters) -> tuple:
+    """Each other decoder-only family at its published widths: the fp32
+    parameter bytes worked out before building, the depth the most layers
+    that fit FAMILY_BUDGET_BYTES (MoE models keep their dense first
+    layers), the model built from a seed, one request of FAMILY_S tokens
+    with FAMILY_NEW new tokens through ServingEngine (its prefill launches
+    swa once per attention layer, RWKV and MLA layers no kernel, decode
+    none), the full-forward check, and the model freed. Returns (the
+    launch counts of the serving runs, the records)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.serve.engine import Request, ServingEngine
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters}
+    recs = []
+    for arch in FAMILIES:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        sizes = np.cumsum(layer_bytes(full))
+        layers = int(np.searchsorted(sizes, FAMILY_BUDGET_BYTES,
+                                     side="right")) - 1
+        if layers <= (full.moe.first_dense_layers if full.moe else 0):
+            raise AssertionError(f"{arch}: {layers} layers fit "
+                                 f"{FAMILY_BUDGET_BYTES:.0f} bytes")
+        cfg = dataclasses.replace(full, num_layers=layers)
+        full_bytes, nbytes = int(sizes[-1]), int(sizes[layers])
+        emit({"phase": "family_cut", "arch": arch,
+              "published_layers": full.num_layers,
+              "published_param_bytes": full_bytes, "layers": layers,
+              "param_bytes": nbytes,
+              "kinds": sorted({k.value for k in cfg.block_kinds()}),
+              "moe_layers": (layers - cfg.moe.first_dense_layers
+                             if cfg.moe else 0)})
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = DecoderLM(cfg, device=DEVICE,
+                          generator=torch.Generator(DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        kinds = [layer.kind.value for layer in model.layers]
+        rng = np.random.default_rng(2)
+        engine = ServingEngine(model, max_batch=1)
+        engine.submit(Request(
+            prompt=rng.integers(0, cfg.vocab_size, FAMILY_S).astype(
+                np.int32), max_new_tokens=FAMILY_NEW))
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        done = engine.run()
+        serve_s = time.perf_counter() - t0
+        launches = {k: c.value for k, c in counters.items()}
+        want = {"swa": kinds.count("attention") + kinds.count("local_attn")}
+        if {k: launches[k] for k in want} != want or \
+                any(launches[k] for k in launches if k not in want):
+            raise AssertionError(f"{arch} serving launched {launches}, "
+                                 f"want {want}")
+        toks = done[0].out_tokens
+        if len(toks) != FAMILY_NEW or \
+                not all(0 <= x < cfg.vocab_size for x in toks):
+            raise AssertionError(f"{arch} served {toks}")
+        for k, v in launches.items():
+            total[k] += v
+        wave = engine.waves[0]
+        rec = {"phase": "family", "arch": arch, "layers": layers,
+               "params": nbytes // 4, "init_s": init_s,
+               "prefill_s": wave["prefill_s"],
+               "decode_ms_per_step": wave["decode_s"]
+               / max(wave["decode_steps"], 1) * 1e3,
+               "serve_s": serve_s, "tokens": toks, "launches": launches,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        rec["consistency"] = phase_consistency(model, FAMILY_S)
+        rec["seconds"] = time.perf_counter() - t_arch
+        emit(rec)
+        recs.append(rec)
+        del model, engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, recs
 
 
 # ---------------------------------------------------------------------------
@@ -2104,11 +2373,20 @@ def check_train_main_shapes() -> dict:
     return out
 
 
+#: the reduced models held on the card against the CPU, with the
+#: sequence of their batch: RecurrentGemma's, and one dense, the
+#: RWKV and an MLA + MoE family (160 tokens: one RWKV chunk and 32 steps)
+TRAIN_CONSISTENCY_ARCHS = (("recurrentgemma-9b", 100), ("qwen3-4b", 160),
+                           ("rwkv6-1.6b", 160),
+                           ("deepseek-v2-lite-16b", 160))
+
+
 def check_train_consistency() -> dict:
-    """The reduced RecurrentGemma on the card and on the CPU from the same
-    parameters and batch, fp32 and bf16: the loss and every parameter's
-    gradient (the card's through swa, swa_bwd, lru_scan and its reverse
-    launch), within the tests' tolerances of max |grad|."""
+    """Each reduced model of TRAIN_CONSISTENCY_ARCHS on the card and on
+    the CPU from the same parameters and batch, fp32 and bf16: the loss
+    (and the MoE aux, non-zero on both) and every parameter's gradient
+    (the card's through swa, swa_bwd, lru_scan and its reverse launch),
+    within the tests' tolerances of the gradient's norm."""
     import dataclasses
     import torch
     from repro_torch.common.config import ShapeConfig
@@ -2117,37 +2395,48 @@ def check_train_consistency() -> dict:
     from repro_torch.models.model import DecoderLM
     from repro_torch.train.loop import value_and_grad
     from repro_torch.train.optim import master_params
+    t_phase = time.perf_counter()
     out = {}
-    for dn, tol in TRAIN_CONSISTENCY_TOL.items():
-        cfg = dataclasses.replace(get_reduced(LM_ARCH), dtype=dn)
-        batch = SyntheticLM(cfg, ShapeConfig("t", 100, 2, "train"),
-                            seed=3).batch(0)
-        res = {}
-        for dev in ("cpu", DEVICE):
-            model = DecoderLM(cfg, device="cpu",
-                              generator=torch.Generator().manual_seed(7))
-            model.to(dev)
-            res[dev] = value_and_grad(model, master_params(model),
-                                      to_device(batch, dev),
-                                      cast_params=True)
-        (lc, _, gc), (lg, _, gg) = res["cpu"], res[DEVICE]
-        # each parameter's gradient by its norm (a gradient that nearly
-        # cancels over the batch carries each device's rounding); the
-        # worst element over its tensor's max is reported beside it
-        worst = max(float(torch.linalg.norm(gg[k].cpu() - g)
-                          / torch.linalg.norm(g)) for k, g in gc.items())
-        worst_max = max(float((gg[k].cpu() - g).abs().max()
-                              / g.abs().max()) for k, g in gc.items())
-        rec = {"loss_cpu": float(lc), "loss_card": float(lg),
-               "worst_grad_err_over_norm": worst,
-               "worst_grad_err_over_max": worst_max, "params": len(gc),
-               "tol": tol}
-        if not (abs(float(lc) - float(lg)) <= tol * abs(float(lc))
-                and worst <= tol):
-            raise AssertionError(f"training on the card disagrees with "
-                                 f"the CPU in {dn}: {rec}")
-        out[dn] = rec
-    emit({"phase": "train_consistency", **out})
+    for arch, seq in TRAIN_CONSISTENCY_ARCHS:
+        out[arch] = {}
+        for dn, tol in TRAIN_CONSISTENCY_TOL.items():
+            cfg = dataclasses.replace(get_reduced(arch), dtype=dn)
+            batch = SyntheticLM(cfg, ShapeConfig("t", seq, 2, "train"),
+                                seed=3).batch(0)
+            res = {}
+            for dev in ("cpu", DEVICE):
+                model = DecoderLM(cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(7))
+                model.to(dev)
+                res[dev] = value_and_grad(model, master_params(model),
+                                          to_device(batch, dev),
+                                          cast_params=True)
+            (lc, mc, g_cpu), (lg, mg, g_card) = res["cpu"], res[DEVICE]
+            # each parameter's gradient by its norm (a gradient that
+            # nearly cancels over the batch carries each device's
+            # rounding); the worst element over its tensor's max is
+            # reported beside it
+            worst = max(float(torch.linalg.norm(g_card[k].cpu() - g)
+                              / torch.linalg.norm(g))
+                        for k, g in g_cpu.items())
+            worst_max = max(float((g_card[k].cpu() - g).abs().max()
+                                  / g.abs().max()) for k, g in g_cpu.items())
+            aux = (float(mc["aux"]), float(mg["aux"]))
+            rec = {"loss_cpu": float(lc), "loss_card": float(lg),
+                   "aux_cpu": aux[0], "aux_card": aux[1],
+                   "worst_grad_err_over_norm": worst,
+                   "worst_grad_err_over_max": worst_max,
+                   "params": len(g_cpu), "seq": seq, "tol": tol}
+            if not (abs(float(lc) - float(lg)) <= tol * abs(float(lc))
+                    and abs(aux[0] - aux[1]) <= tol * abs(aux[0])
+                    and (min(aux) > 0) == (cfg.moe is not None)
+                    and worst <= tol):
+                raise AssertionError(f"training {arch} on the card "
+                                     f"disagrees with the CPU in {dn}: "
+                                     f"{rec}")
+            out[arch][dn] = rec
+    emit({"phase": "train_consistency", **out,
+          "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -2523,6 +2812,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, v in train_launches.items():
         launches[k] += v
+
+    # serving qwen3-4b at its published widths, every prefill's attention
+    # on swa at window = S; then each other decoder-only family
+    model, dense_launches = phase_serve(counters, DENSE_ARCH)
+    phase_consistency(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_launches, _ = phase_families(counters)
+    for got in (dense_launches, family_launches):
+        for k, v in got.items():
+            launches[k] += v
 
     # the invariant gate: static rules, the traced drive, sync freedom
     phase_gate(smi)

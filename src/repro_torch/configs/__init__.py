@@ -1,26 +1,57 @@
 """Architecture config registry of the port: ``get_config(arch_id)`` /
-``get_reduced``, with the JAX package's ids.
+``get_reduced``, with the JAX package's ids, and its ``ASSIGNED`` list,
+``supports_shape`` and ``shape_by_name``.
 
-The registry lists only the architectures whose every block kind the port
-builds. The JAX package's other ids raise, naming the ROADMAP item that
-brings them.
+The registry lists the architectures whose every block kind the port
+builds: RecurrentGemma and the decoder-only text families (dense, RWKV6,
+MLA with MoE). The JAX package's prefix-VLM and encoder-decoder ids raise,
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
-from repro_torch.common.config import ModelConfig
-from repro_torch.configs import recurrentgemma_9b
+from repro_torch.common.config import ModelConfig, SHAPES, ShapeConfig
+from repro_torch.configs import (
+    codeqwen1_5_7b,
+    deepseek_v2_236b,
+    deepseek_v2_lite_16b,
+    qwen3_4b,
+    recurrentgemma_9b,
+    rwkv6_1_6b,
+    stablelm_1_6b,
+    yi_34b,
+)
 
 _REGISTRY = {
     recurrentgemma_9b.ID: (recurrentgemma_9b.config,
                            recurrentgemma_9b.reduced),
+    deepseek_v2_lite_16b.ID: (deepseek_v2_lite_16b.config,
+                              deepseek_v2_lite_16b.reduced),
+    stablelm_1_6b.ID: (stablelm_1_6b.config, stablelm_1_6b.reduced),
+    rwkv6_1_6b.ID: (rwkv6_1_6b.config, rwkv6_1_6b.reduced),
+    deepseek_v2_236b.ID: (deepseek_v2_236b.config, deepseek_v2_236b.reduced),
+    qwen3_4b.ID: (qwen3_4b.config, qwen3_4b.reduced),
+    qwen3_4b.ID_SW: (qwen3_4b.config_sw, qwen3_4b.reduced_sw),
+    yi_34b.ID: (yi_34b.config, yi_34b.reduced),
+    codeqwen1_5_7b.ID: (codeqwen1_5_7b.config, codeqwen1_5_7b.reduced),
 }
 
 # the JAX package's architectures the port cannot build yet
-_NOT_PORTED = (
-    "deepseek-v2-lite-16b", "stablelm-1.6b", "paligemma-3b",
-    "whisper-medium", "rwkv6-1.6b", "deepseek-v2-236b", "qwen3-4b",
-    "qwen3-4b-sw", "yi-34b", "codeqwen1.5-7b",
-)
+_NOT_PORTED = ("paligemma-3b", "whisper-medium")
+
+# The 10 assigned architecture ids (qwen3-4b-sw is a variant, not
+# assigned), as the JAX package lists them; the two of _NOT_PORTED raise.
+ASSIGNED = [
+    recurrentgemma_9b.ID,
+    deepseek_v2_lite_16b.ID,
+    stablelm_1_6b.ID,
+    "paligemma-3b",
+    "whisper-medium",
+    rwkv6_1_6b.ID,
+    deepseek_v2_236b.ID,
+    qwen3_4b.ID,
+    yi_34b.ID,
+    codeqwen1_5_7b.ID,
+]
 
 ALL_ARCHS = list(_REGISTRY)
 
@@ -30,9 +61,8 @@ def _lookup(arch: str):
         return _REGISTRY[arch]
     if arch in _NOT_PORTED:
         raise NotImplementedError(
-            f"architecture {arch!r} is not in the port yet: its block kinds "
-            "and families come with ROADMAP A11c (serving RecurrentGemma "
-            "is A11a)")
+            f"architecture {arch!r} is not in the port yet: the prefix-VLM "
+            "and the encoder-decoder come with ROADMAP A11c-4 and A11c-5")
     raise KeyError(f"unknown architecture {arch!r} (ported: {ALL_ARCHS})")
 
 
@@ -42,3 +72,17 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _lookup(arch)[1]()
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether (arch, shape) is runnable.
+
+    long_500k needs sub-quadratic attention: SSM/hybrid/sliding-window only.
+    """
+    if shape.name == "long_500k":
+        return cfg.supports_long_context()
+    return True
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -110,12 +110,26 @@ def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
     ``segments/{i}/b{j}/<path>`` [l]    ``layers.{n}.<path>``
     ==================================  ===============================
 
-    where ``<path>`` keeps its names with ``/`` read as ``.`` (e.g.
-    ``temporal/q/w``, ``temporal/lam``, ``ffn/up/w``, ``norm1/scale``) and
-    layer ``n = o_i + l * c_i + j``: segment ``i`` stacks ``count_i``
-    cycles of ``c_i`` blocks (``b0`` .. ``b{c_i - 1}``) along a leading
-    axis indexed by ``l``, and ``o_i`` counts the layers of the segments
-    before it."""
+    where ``<path>`` keeps its names with ``/`` read as ``.`` and layer
+    ``n = o_i + l * c_i + j``: segment ``i`` stacks ``count_i`` cycles of
+    ``c_i`` blocks (``b0`` .. ``b{c_i - 1}``) along a leading axis indexed
+    by ``l``, and ``o_i`` counts the layers of the segments before it
+    (DeepSeek-V2's dense first layer is segment 0, its MoE layers segment
+    1, so they are layers 1, 2, ...). The paths, by block:
+
+    =====================  ==============================================
+    block                  ``<path>`` examples
+    =====================  ==============================================
+    attention, local       ``norm1/scale``, ``temporal/q/w``,
+                           ``temporal/q_norm/scale``, ``ffn/up/w``
+    RG-LRU                 ``temporal/lam``, ``temporal/conv_w``
+    MLA                    ``temporal/w_dkv/w``, ``temporal/kv_norm/scale``,
+                           ``temporal/w_uq/w`` (q-LoRA) or ``temporal/w_q/w``
+    MoE FFN                ``ffn/router/w``, ``ffn/gate_w``, ``ffn/up_w``,
+                           ``ffn/down_w``, ``ffn/shared/up/w``
+    RWKV6 (the whole       ``ln1/scale``, ``r/w``, ``w0``, ``w_a``,
+    layer, top level)      ``ln_x_scale``, ``cm_k/w``
+    =====================  =============================================="""
     out: dict[str, torch.Tensor] = {}
 
     def leaves(tree, prefix):

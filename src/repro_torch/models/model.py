@@ -5,13 +5,16 @@ over caches for serving.
 The JAX package stacks layers of one structure into segments and scans
 them; the port keeps one module per layer in ``layers`` (a ``ModuleList``
 in the order of ``cfg.block_kinds()``: RecurrentGemma-9B's 38 layers are
-12 (rec, rec, local) cycles and a (rec, rec) tail), so a layer's
+12 (rec, rec, local) cycles and a (rec, rec) tail; DeepSeek-V2's dense
+first layer and its MoE layers are two segments there), so a layer's
 parameters are ``layers.{n}.<path>`` where the JAX package has
-``segments/{i}/b{j}/<path>[l]``. With ``remat`` each layer runs under
-``torch.utils.checkpoint`` (the JAX package checkpoints its scan body);
-training differentiates through the swa and lru_scan kernels' autograd
-Functions on the card. The encoder-decoder and prefix-LM models wait for
-ROADMAP A11c.
+``segments/{i}/b{j}/<path>[l]``. The MoE layers' router losses are summed
+into the loss's aux, as the JAX package carries them through its scan.
+With ``remat`` each layer runs under ``torch.utils.checkpoint`` (the JAX
+package checkpoints its scan body), the aux coming out of the checkpoint
+beside the hidden state; training differentiates through the swa and
+lru_scan kernels' autograd Functions on the card. The encoder-decoder and
+prefix-LM models wait for ROADMAP A11c-4 and A11c-5.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import explicit_device
 from repro_torch.kernels.device import settle_cpu_vector_math
-from repro_torch.models.blocks import Block, check_buildable, \
-    init_block_cache
+from repro_torch.models.blocks import check_buildable, init_block_cache, \
+    make_block, uses_moe
 from repro_torch.nn.core import normal
 from repro_torch.nn.linear import Embedding
 from repro_torch.nn.norms import norm
@@ -36,7 +39,8 @@ from repro_torch.train.loss import chunked_unembed_cross_entropy, \
 
 @dataclasses.dataclass
 class DecodeState:
-    caches: list          # per layer: KVCache or RGLRUCache
+    caches: list          # per layer: KVCache, RGLRUCache, RWKVCache or
+    #                       MLACache
     index: int            # number of tokens already in the caches
 
 
@@ -59,8 +63,9 @@ class DecoderLM(nn.Module):
         self.final_norm = norm(d, cfg.use_layernorm, cfg.norm_eps,
                                device=dev)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, generator=generator, device=dev)
-            for kind in cfg.block_kinds())
+            make_block(cfg, kind, generator=generator, device=dev,
+                       use_moe=uses_moe(cfg, n))
+            for n, kind in enumerate(cfg.block_kinds()))
         self.lm_head = None if cfg.tie_embeddings else \
             Embedding(normal((v, d), 0.02, generator, dev))
 
@@ -77,6 +82,16 @@ class DecoderLM(nn.Module):
         ``remat`` (no caches) each layer's activations are recomputed in
         the backward pass instead of kept. Returns (final-norm hidden
         states (B, S, d), new caches)."""
+        x, new_caches, _ = self.forward_with_aux(tokens, caches=caches,
+                                                 index=index, remat=remat)
+        return x, new_caches
+
+    def forward_with_aux(self, tokens: torch.Tensor, *,
+                         caches: Optional[list] = None,
+                         index: Optional[int] = None, remat: bool = False):
+        """:meth:`forward`, also returning the sum of the MoE layers'
+        router losses (a scalar fp32 tensor, zero without MoE layers): the
+        JAX package's ``forward``."""
         cd = self.compute_dtype
         if tokens.device.type == "cpu":
             # the layers' first exp, tanh, softplus of a process on large
@@ -90,26 +105,32 @@ class DecoderLM(nn.Module):
         else:
             positions = torch.full((b, s), index, device=x.device)
         new_caches = []
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for n, layer in enumerate(self.layers):
             if remat and caches is None:
-                x, nc = _checkpointed(layer, x, positions, cd), None
+                x, aux = _checkpointed(layer, x, positions, cd)
+                nc = None
             else:
-                x, nc = layer(x, positions,
-                              cache=caches[n] if caches is not None
-                              else None,
-                              cache_index=index, compute_dtype=cd)
+                x, nc, aux = layer(x, positions,
+                                   cache=caches[n] if caches is not None
+                                   else None,
+                                   cache_index=index, compute_dtype=cd)
+            if aux is not None:
+                aux_total = aux_total + aux
             new_caches.append(nc)
-        return self.final_norm(x), new_caches
+        return self.final_norm(x), new_caches, aux_total
 
     def loss(self, batch: dict):
         """Mean next-token nll of ``batch`` ({"tokens", "labels"}: (B, S)
         ids on the model's device; labels < 0 are ignored). Returns
-        (loss, {"nll", "aux"}): aux, the MoE router loss of the JAX
-        package, is 0 for the blocks the port builds. ``cfg.remat ==
-        "full"`` recomputes each layer in the backward pass;
-        ``cfg.loss_chunk`` selects the chunked unembed + cross-entropy."""
+        (loss, {"nll", "aux"}): aux, the MoE layers' summed router loss
+        (0 without MoE layers), is added to the loss, as the JAX package
+        adds it. ``cfg.remat == "full"`` recomputes each layer in the
+        backward pass; ``cfg.loss_chunk`` selects the chunked unembed +
+        cross-entropy."""
         cfg = self.cfg
-        x, _ = self.forward(batch["tokens"], remat=cfg.remat == "full")
+        x, _, aux = self.forward_with_aux(batch["tokens"],
+                                          remat=cfg.remat == "full")
         labels = batch["labels"]
         if cfg.loss_chunk:
             head = self.lm_head if self.lm_head is not None else self.embed
@@ -118,7 +139,6 @@ class DecoderLM(nn.Module):
                 compute_dtype=self.compute_dtype)
         else:
             nll = softmax_cross_entropy(self.unembed(x), labels)
-        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
         return nll + aux, {"nll": nll, "aux": aux}
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +174,9 @@ class DecoderLM(nn.Module):
 
 def _checkpointed(layer: nn.Module, x: torch.Tensor,
                   positions: torch.Tensor, compute_dtype: torch.dtype):
-    """``layer(x, positions)[0]`` under ``torch.utils.checkpoint``. The
+    """(x, aux) of ``layer(x, positions)`` under
+    ``torch.utils.checkpoint``: the MoE router loss comes out of the
+    checkpoint beside the hidden state (None for a dense layer). The
     layer's parameters go in as explicit inputs and the recomputation
     runs on exactly those tensors (``torch.func.functional_call``), so it
     is right whether the layer holds its own parameters or is called
@@ -164,8 +186,8 @@ def _checkpointed(layer: nn.Module, x: torch.Tensor,
     names, tensors = zip(*layer.named_parameters())
 
     def run(x, *params):
-        out, _ = torch.func.functional_call(
+        out, _, aux = torch.func.functional_call(
             layer, dict(zip(names, params)), (x, positions),
             {"compute_dtype": compute_dtype})
-        return out
+        return out, aux
     return checkpoint(run, x, *tensors, use_reentrant=False)

@@ -3,19 +3,22 @@ cache that is a ring buffer of ``window`` slots for sliding-window layers,
 so long-context decode stays O(window) per layer.
 
 Routes, by the function computed (never by whether a kernel built):
-  * a full forward or prefill that is windowed, with no softcap, runs
-    ``kernels.swa_attention`` (the CUDA kernel on the card): with
-    ``kv_pos = q_pos`` it computes exactly the masked softmax of
-    :func:`multihead_attention`. Under autograd (training) that is the
-    kernel's ``torch.autograd.Function``, whose backward is the swa
-    backward kernel on the card; its gradients arrive in the layout of
-    the (B, S, H, D) views passed in, so nothing is copied for them;
-  * every other case — decode over the cache, global attention, a
-    softcap — runs the plain masked :func:`multihead_attention`, as the
-    JAX package computes it in XLA (autograd differentiates it there).
+  * a full forward or prefill with no softcap runs
+    ``kernels.swa_attention`` (the CUDA kernel on the card): windowed
+    layers with their window, global layers with window = S, which is
+    causal attention. With ``kv_pos = q_pos`` it computes exactly the
+    masked softmax of :func:`multihead_attention`, and never builds the
+    (S, S) scores. Under autograd (training) that is the kernel's
+    ``torch.autograd.Function``, whose backward is the swa backward
+    kernel on the card; its gradients arrive in the layout of the
+    (B, S, H, D) views passed in, so nothing is copied for them;
+  * every other case — decode over the cache, a softcap — runs the plain
+    masked :func:`multihead_attention`, as the JAX package computes it in
+    XLA (autograd differentiates it there). So does MLA's expanded
+    prefill (``nn/mla.py``), whose q/k and v head dims differ.
 
 Non-causal, prefix-LM and cross-attention (encoder-decoder, VLM) wait for
-ROADMAP A11c.
+ROADMAP A11c-4 and A11c-5.
 """
 from __future__ import annotations
 
@@ -161,10 +164,10 @@ class Attention(nn.Module):
                 softcap=cfg.logit_softcap)
         else:
             # --- full forward / prefill ---
-            if window > 0 and not cfg.logit_softcap:
+            if not cfg.logit_softcap:
                 out = swa_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2),
-                                    window=window).transpose(1, 2)
+                                    window=window or s).transpose(1, 2)
             else:
                 out = multihead_attention(q, k, v, positions, positions,
                                           window=window,

@@ -970,3 +970,87 @@ def test_cuda_inference_launches_no_backward_and_writes_no_lse(cuda,
     assert asked == [False]
     assert {k: c.value for k, c in counters.items() if c.value} == \
         {"swa": 1, "lru_scan": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (14, 2)],
+                         ids=["group1", "group4", "group7"])
+def test_cuda_swa_at_window_covering_seq_is_global_attention(
+        cuda, dtype, tol, head_dim, h, kh):
+    """The dense families' global layers: swa and swa_bwd with window = S
+    (and past it) at head dims 64 and 128, GQA groups of 1, 4 and 7 (yi's
+    56 heads over 8), on (B, S, H, D) views against their plain versions
+    on fp32 copies, within tol of max |.|; in bf16 the gradients also
+    within GRAD_RMS_TOL of their RMS."""
+    from chip_smoke import GRAD_RMS_TOL, grad_rms_ratio
+    from repro_torch.kernels.swa.ops import swa_attention, swa_backward, \
+        swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref, swa_ref
+    g = torch.Generator().manual_seed(h + head_dim)
+    for s, window in [(200, 200), (129, 1000)]:
+        q = torch.randn(2, s, h, head_dim, generator=g).to(cuda, dtype)
+        k, v = (torch.randn(2, s, kh, head_dim, generator=g).to(cuda, dtype)
+                for _ in range(2))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        want = swa_ref(q.float(), k.float(), v.float(), window)
+        torch.testing.assert_close(
+            swa_attention(q, k, v, window=window).float(), want, rtol=0,
+            atol=tol * float(want.abs().max()))
+        dout = torch.randn(2, h, s, head_dim, generator=g).to(cuda, dtype)
+        o, lse = swa_forward(q, k, v, window, with_lse=True)
+        got = swa_backward(q, k, v, o, lse, dout, window=window)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
+                                lse, dout.float(), window)
+        for gg, w in zip(got, want):
+            torch.testing.assert_close(gg.float(), w, rtol=0,
+                                       atol=tol * float(w.abs().max()))
+            if dtype == torch.bfloat16:
+                assert grad_rms_ratio(gg, w) <= GRAD_RMS_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b"])
+def test_cuda_family_loss_and_gradients_equal_the_cpus(cuda, dtype, tol,
+                                                       arch):
+    """A reduced dense family (global attention through swa and swa_bwd)
+    and a reduced MLA + MoE family: the loss, the MoE aux and every
+    parameter's gradient on the card equal the CPU's (by its norm), from
+    the same parameters and batch."""
+    import dataclasses
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optim import master_params
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
+    batch = SyntheticLM(cfg, ShapeConfig("t", 96, 2, "train"),
+                        seed=5).batch(0)
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    res = {}
+    for dev in ("cpu", cuda):
+        model = DecoderLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(11))
+        model.to(dev)
+        res[str(dev)] = value_and_grad(model, master_params(model),
+                                       to_device(batch, dev),
+                                       cast_params=True)
+    (lc, mc, gc), (lg, mg, gg) = res["cpu"], res[str(cuda)]
+    assert abs(float(lg) - float(lc)) <= tol * abs(float(lc))
+    assert abs(float(mg["aux"]) - float(mc["aux"])) <= \
+        tol * abs(float(mc["aux"]))
+    assert (float(mg["aux"]) > 0) == (cfg.moe is not None)
+    for k, w in gc.items():
+        err = float(torch.linalg.norm(gg[k].cpu() - w))
+        assert err <= tol * float(torch.linalg.norm(w)), k
+    torch.cuda.synchronize()
+    attention = cfg.moe is None
+    assert (counters["swa"].value > 0) == attention
+    assert (counters["swa_bwd"].value > 0) == attention

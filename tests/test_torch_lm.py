@@ -26,11 +26,10 @@ from repro.nn.rglru import RGLRUCache as RefRGLRUCache, apply_rglru, \
 from repro.serve.engine import Request as RefRequest, \
     ServingEngine as RefEngine
 from repro_torch import configs, interop
-from repro_torch.common.config import BlockKind, ModelConfig, MoEConfig
+from repro_torch.common.config import BlockKind, ModelConfig
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.launch import profile_serve, serve as launch_serve
-from repro_torch.models.blocks import Block
 from repro_torch.models.model import DecoderLM
 from repro_torch.nn.attention import Attention, KVCache
 from repro_torch.nn.rglru import RGLRU, RGLRUCache
@@ -100,8 +99,8 @@ def test_rglru_forward_and_decode_match_the_jax_layer():
 @pytest.mark.parametrize("window,qk_norm", [(8, False), (0, True)])
 def test_attention_forward_and_decode_match_the_jax_layer(window, qk_norm):
     """Local attention (the swa route, and a ring cache of 8 slots written
-    by a 15-token prefill) and global attention with qk-norm (the plain
-    route)."""
+    by a 15-token prefill) and global attention with qk-norm (the swa
+    route with window = S)."""
     cfg_j, cfg_p = _layer_cfgs(sliding_window=window, qk_norm=qk_norm)
     params = init_params(ref_attn.attention_spec(cfg_j), KEY)
     layer = Attention(cfg_p, generator=torch.Generator(), device="cpu")
@@ -296,18 +295,15 @@ def test_configs_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: configs.get_config("qwen3-4b"),
-    lambda: DecoderLM(dataclasses.replace(configs.get_reduced(ARCH),
-                                          block_pattern=(BlockKind.MLA,)),
-                      device="cpu"),
-    lambda: DecoderLM(dataclasses.replace(configs.get_reduced(ARCH),
-                                          block_pattern=(BlockKind.RWKV,)),
-                      device="cpu"),
+    lambda: configs.get_config("paligemma-3b"),
+    lambda: configs.get_reduced("paligemma-3b"),
+    lambda: configs.get_config("whisper-medium"),
+    lambda: configs.get_reduced("whisper-medium"),
     lambda: DecoderLM(dataclasses.replace(
-        configs.get_reduced(ARCH), moe=MoEConfig(4, 1, 2, 64)),
+        configs.get_reduced(ARCH), encoder_layers=2, encoder_seq=8),
         device="cpu"),
-    lambda: Block(configs.get_reduced(ARCH), BlockKind.MLA,
-                  generator=torch.Generator(), device="cpu"),
+    lambda: DecoderLM(dataclasses.replace(configs.get_reduced(ARCH),
+                                          prefix_len=4), device="cpu"),
 ])
 def test_building_what_the_port_lacks_raises(make):
     with pytest.raises(NotImplementedError, match="A11c"):
