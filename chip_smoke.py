@@ -49,12 +49,20 @@ holds a full forward against prefill + decode; and runs each other
 decoder-only family (qwen3-4b-sw, stablelm-1.6b, rwkv6-1.6b,
 codeqwen1.5-7b, and yi-34b, deepseek-v2-lite-16b and deepseek-v2-236b
 cut in depth to what one card holds) at its published widths through the
-serving engine, one 2,048-token request each, with the same check.
+serving engine, one 2,048-token request each, with the same check. Then
+it serves paligemma-3b (all 18 layers, every prefill's attention on the
+swa kernel with its 256 image patches as a bidirectional prefix) and
+whisper-medium (24 encoder layers on swa with prefix = window = S over
+1,500 frames, 24 decoder layers causal, cross-attention plain) at their
+published widths, 8 requests each in two waves of 4 with patch
+embeddings or frames drawn per wave, with the same full-forward check.
 Before the main path it also holds the two backward kernels against
 their plain versions at the JAX sweeps and the training shapes, swa at
-window = S at the dense families' shapes, and the reduced RecurrentGemma,
+window = S at the dense families' shapes, swa with a prefix at
+PaliGemma's and Whisper's encoder's shapes, the reduced RecurrentGemma,
 qwen3-4b, rwkv6-1.6b and deepseek-v2-lite-16b's loss and gradients on the
-card against the CPU.
+card against the CPU, and the reduced paligemma-3b and whisper-medium's
+forward on the card against the CPU.
 
 Each phase prints JSON lines; a failing check raises and the script exits
 non-zero. It needs one CUDA card and imports nothing of JAX or of the JAX
@@ -136,6 +144,18 @@ FAMILY_BUDGET_BYTES = 40e9
 CAUSAL_SHAPES = (("qwen3-4b", LM_MAX_BATCH, LM_PROMPT_MAX),
                  ("stablelm-1.6b", 1, FAMILY_S), ("yi-34b", 1, FAMILY_S))
 
+# serving the prefix-VLM and the encoder-decoder at published widths and
+# full depth, with RecurrentGemma's waves and new tokens: (arch, shortest
+# and longest text prompt). PaliGemma's prompts follow its 256 image
+# patches; Whisper's decoder prompt is its start tokens plus up to 223
+# tokens of previous text, after the encoder's 1,500 frames
+MODAL_TRAFFIC = (("paligemma-3b", 32, 512), ("whisper-medium", 4, 224))
+# swa with a bidirectional prefix at window = S on the path: (arch, batch,
+# sequence, prefix): PaliGemma's 256 patches and longest prompt; Whisper's
+# encoder, bidirectional over its 1,500 frames
+PREFIX_SHAPES = (("paligemma-3b", LM_MAX_BATCH, 256 + 512, 256),
+                 ("whisper-medium", LM_MAX_BATCH, 1_500, 1_500))
+
 # tolerances of the JAX package's kernel tests (tests/test_kernels.py,
 # tests/test_extensions.py, tests/test_lru_loss_kernels.py): rtol, and
 # atol as a multiple of max|want| (rf_map's, swa's and lru_scan's atol is
@@ -198,7 +218,7 @@ KERNEL_DESIGN = {
 # keys a kernel's record may add to its entry in the kernels line
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
                  "copy_ceiling_ms", "train_shape", "long_prompt",
-                 "causal_shapes",
+                 "causal_shapes", "prefix_shapes",
                  "unfused_ms",
                  "lambda_only_ms", "lambda_only_bound_ms")
 
@@ -387,14 +407,38 @@ def _swa_case(rng, dt, dn, s, window, h, kh, d) -> None:
                    GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
 
 
+def _swa_prefix_case(rng, dt, dn, s, window, prefix, h, kh, d) -> None:
+    """The forward of swa with a bidirectional prefix on (2, s, h, d)
+    queries and (2, s, kh, d) keys and values as (B, S, H, D) views
+    against its plain version (bf16 also to the main shape's limit); its
+    backward takes no prefix on the card (ROADMAP B.7)."""
+    import torch
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    q = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
+    k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
+            for _ in range(2))
+    got = swa_attention(q, k, v, window=window, prefix=prefix)
+    close("swa", got, swa_ref(q, k, v, window, prefix), dn,
+          absolute_atol=True)
+    if dt == torch.bfloat16:
+        ratio = swa_excess(got, swa_ref(q.float(), k.float(), v.float(),
+                                        window, prefix))[1]
+        if not ratio <= 1.0:
+            raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
+                                 f"{window} prefix {prefix}: {ratio:.3f} x "
+                                 "the limit")
+
+
 def check_lm_test_shapes(rng, dt, dn) -> int:
     """swa and lru_scan at the JAX sweeps (tests/test_kernels.py,
     tests/test_lru_loss_kernels.py), plus S not a multiple of 64, MQA,
-    window >= S, S = 300 on (B, S, H, D) views at every head dim, one
-    query head a kv head, and global attention (window >= S) at head dims
-    64 and 128 with GQA groups of 1, 4 and 7: fp32 through the CUDA-core
-    route, bf16 through the tensor-core route, which is also held to the
-    main shape's limit (swa_excess)."""
+    window >= S, S = 300 on (B, S, H, D) views at every head dim (also
+    with prefixes of 1, 100 and S, at window = S and 100), one query head
+    a kv head, and global attention (window >= S) at head dims 64 and 128
+    with GQA groups of 1, 4 and 7: fp32 through the CUDA-core route, bf16
+    through the tensor-core route, which is also held to the main shape's
+    limit (swa_excess)."""
     import torch
     from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
     from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
@@ -409,6 +453,13 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
                              (300, 100, 1, 256), (200, 50, 4, 64)]:
         _swa_case(rng, dt, dn, s, window, 4, kh, d)
         n += 1
+    # the prefix-LM's and the encoder's mask at S = 300, every head dim: a
+    # prefix of one key, one off the 64-key tile, and all S
+    for d in (32, 64, 128, 256):
+        for prefix in (1, 100, 300):
+            for window in (300, 100):
+                _swa_prefix_case(rng, dt, dn, 300, window, prefix, 4, 1, d)
+                n += 1
     # global attention (window >= S), the dense families' layers: head
     # dims 64 and 128, GQA groups of 1, 4 and 7 (yi-34b's 56 heads over 8)
     for s, window, h, kh, d in [(200, 200, 4, 4, 64), (300, 300, 8, 2, 128),
@@ -696,6 +747,7 @@ def check_lm_main_shapes() -> dict:
     del a, x, h0, o
     torch.cuda.empty_cache()
     out["swa"]["causal_shapes"] = check_causal_shapes()
+    out["swa"]["prefix_shapes"] = check_prefix_shapes()
     return out
 
 
@@ -751,6 +803,89 @@ def check_causal_shapes() -> list:
             "bound_ms": bound, "bound_by": by,
             "seconds": time.perf_counter() - t0})
         del q, k, v, kx, vx
+        torch.cuda.empty_cache()
+    return out
+
+
+def visible_pairs(s: int, prefix: int) -> int:
+    """(query, key) pairs the prefix mask shows at window = S: the P x P
+    prefix block, then each later query its causal keys."""
+    return prefix * prefix + (s * (s + 1) - prefix * (prefix + 1)) // 2
+
+
+def check_prefix_shapes() -> list:
+    """swa with a bidirectional prefix at window = S, the routes of the
+    prefix-LM and the encoder, at PREFIX_SHAPES: PaliGemma's 4 x 8 x 768
+    x 256 over 1 kv head with prefix 256, and Whisper's encoder, 4 x 16 x
+    1,500 x 64 with prefix = S; bf16 (B, S, H, D) views. Each held to the
+    SWA_RTOL / SWA_ATOL_RMS limit against the plain version on fp32
+    copies, which must reject two planted faults, a prefix one key short
+    and no prefix; timed beside the plain version, one
+    ``scaled_dot_product_attention`` call (the prefix mask as a bool
+    mask, k and v repeated to the query heads; non-causal without a mask
+    for the encoder) and the bound: 4 B H D times the visible pairs, P^2
+    + sum_{q=P}^{S-1} (q + 1), at the bf16 rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    out = []
+    for n, (arch, b, s, prefix) in enumerate(PREFIX_SHAPES):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if cfg.is_encdec:     # the encoder: every head its own kv head
+            h = kh = cfg.num_heads
+            d = cfg.encoder_d_model // cfg.num_heads
+        else:
+            h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = (_randn_on_card((b, s, heads, d), 60 + 3 * n + i)
+                   .bfloat16().transpose(1, 2)
+                   for i, heads in enumerate((h, kh, kh)))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        want = swa_ref(qf, kf, vf, s, prefix)
+        err, ratio = swa_excess(swa_attention(q, k, v, window=s,
+                                              prefix=prefix), want)
+        faults = {f"prefix_{p}": swa_excess(
+            swa_ref(qf, kf, vf, s, p).bfloat16(), want)[1]
+            for p in (prefix - 1, 0)}
+        del qf, kf, vf, want
+        if not ratio <= 1.0:
+            raise AssertionError(f"swa bfloat16 {tuple(q.shape)} prefix "
+                                 f"{prefix}: max abs err {err:.3e}, "
+                                 f"{ratio:.3f} x the limit")
+        if not all(r > 1.0 for r in faults.values()):
+            raise AssertionError(f"swa's limit passes a planted fault at "
+                                 f"{arch}'s shape: {faults}")
+        kx, vx = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+        pos = torch.arange(s, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) | (
+            (pos[None, :] < prefix) & (pos[:, None] < prefix))
+        if prefix == s:
+            def library():
+                return F.scaled_dot_product_attention(q, kx, vx)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(q, kx, vx,
+                                                      attn_mask=mask)
+        nbytes = 2.0 * 2 * (b * h * s * d + b * kh * s * d)
+        bound, by = bound_ms(nbytes, 4.0 * b * h * d
+                             * visible_pairs(s, prefix), BF16_FLOPS)
+        out.append({
+            "arch": arch, "shape": [b, h, kh, s, d, s], "prefix": prefix,
+            "dtype": "bfloat16", "max_abs_err": err,
+            "err_over_limit": ratio, "planted_faults_over_limit": faults,
+            "kernel_ms": cuda_time_ms(lambda: swa_attention(
+                q, k, v, window=s, prefix=prefix)),
+            "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, s, prefix)),
+            "library_ms": cuda_time_ms(library),
+            "library_note": "scaled_dot_product_attention, non-causal"
+                            if prefix == s else
+                            "scaled_dot_product_attention, the prefix mask "
+                            "as a bool mask",
+            "bound_ms": bound, "bound_by": by,
+            "seconds": time.perf_counter() - t0})
+        del q, k, v, kx, vx, mask
         torch.cuda.empty_cache()
     return out
 
@@ -2034,16 +2169,19 @@ def moe_without_drops(model):
             m.cfg = cfg
 
 
-def _full_vs_decode(model, toks) -> tuple:
+def _full_vs_decode(model, toks, extras) -> tuple:
     """(max |full - decode|, max |full|, argmax full, argmax decode) of the
     last position's logits: a full forward of ``toks`` (1, S) against
-    prefill(S - 1) and one decode step."""
+    prefill(S - 1) and one decode step, ``extras`` (a prefix-LM's patch
+    embeddings, an encoder-decoder's frames) given to both."""
     import torch
     with torch.inference_mode():
-        x, _ = model(toks)
+        x, _ = model(toks, **extras)
         full = model.unembed(x[:, -1:])[:, 0].float()
         del x
-        _, state = model.prefill(toks[:, :-1], seq_len=toks.shape[1])
+        _, state = model.prefill(
+            toks[:, :-1], seq_len=toks.shape[1] + model.cfg.prefix_len,
+            **extras)
         step, _ = model.decode_step(state, toks[:, -1:])
         step = step.float()
     del state
@@ -2055,12 +2193,13 @@ def _full_vs_decode(model, toks) -> tuple:
 
 
 def phase_consistency(model, seq: int = LM_S) -> dict:
-    """One request of ``seq`` tokens: the last-position logits of a full
+    """One request of ``seq`` tokens (behind a prefix-LM's patches, or
+    with an encoder-decoder's frames): the last-position logits of a full
     forward (every attention and recurrent layer through the kernels)
     against prefill(seq - 1) and one decode step (the last token through
     the plain cache attention, MLA's absorbed decode, the single
-    recurrence step), within LM_CONSISTENCY_TOL of max |logit| and the
-    same argmax. A model with MoE layers is compared without capacity
+    recurrence step, the cross cache), within LM_CONSISTENCY_TOL of max
+    |logit| and the same argmax. A model with MoE layers is compared without capacity
     drops (:func:`moe_without_drops`): in its bf16 compute within the
     limit, and again in fp32 compute within the limit and with the same
     argmax. In bf16 the router's logits for the last token, a product
@@ -2068,17 +2207,20 @@ def phase_consistency(model, seq: int = LM_S) -> dict:
     round a near tie of two experts either way, a discrete choice the two
     paths may make apart; the bf16 argmaxes are reported."""
     import torch
+    from repro_torch.models.io import stub_extras
     cfg = model.cfg
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq)))
     toks = toks.to(DEVICE)
+    extras = {k: torch.from_numpy(v).to(DEVICE) for k, v in stub_extras(
+        cfg, 1, np.random.RandomState(1)).items()}
     rec = {"phase": "consistency", "arch": cfg.name, "seq": seq,
            "layers": cfg.num_layers}
     fails = []
     with moe_without_drops(model) as factor:
         if factor is not None:
             rec["moe_capacity_factor"] = factor
-            err, scale, top_full, top_step = _full_vs_decode(model, toks)
+            err, scale, top_full, top_step = _full_vs_decode(model, toks, extras)
             rec.update({"bf16_max_abs_diff": err,
                         "bf16_max_abs_logit": scale,
                         "bf16_limit": LM_CONSISTENCY_TOL * scale,
@@ -2088,7 +2230,7 @@ def phase_consistency(model, seq: int = LM_S) -> dict:
             model.compute_dtype = torch.float32
             rec["compute"] = "float32"
         try:
-            err, scale, top_full, top_step = _full_vs_decode(model, toks)
+            err, scale, top_full, top_step = _full_vs_decode(model, toks, extras)
         finally:
             model.compute_dtype = getattr(torch, cfg.dtype)
     rec.update({"max_abs_logit": scale, "max_abs_diff": err,
@@ -2204,6 +2346,156 @@ def phase_families(counters) -> tuple:
     emit({"phase": "families", "launches": total,
           "seconds": time.perf_counter() - t_phase})
     return total, recs
+
+
+def phase_modalities(counters) -> tuple:
+    """Serve the prefix-VLM and the encoder-decoder at their published
+    widths and full depth through ServingEngine, per MODAL_TRAFFIC:
+    LM_REQUESTS requests in waves of LM_MAX_BATCH, LM_NEW_TOKENS new
+    tokens each, random fp32 parameters from a generator seeded 0, bf16
+    compute, each wave's patch embeddings or frames drawn by
+    ``extras_fn`` (numpy, seed 0, x 0.02). Checks: each prefill launches
+    swa once per attention layer (PaliGemma's 18 with prefix 256; Whisper's
+    24 encoder layers with prefix = S and 24 decoder layers causal),
+    nothing else launches and decode launches nothing (the counts are
+    exact per wave); tokens in range; the full forward against prefill +
+    decode with the extras given. Whisper's prefill is split into the
+    encoder's seconds and the decoder's. Returns (the launch counts of
+    the serving runs, the records)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.io import stub_extras
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServingEngine
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters}
+    recs = []
+    for arch, lo, hi in MODAL_TRAFFIC:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        encode_s = []
+        if cfg.is_encdec:
+            encode = model.encode
+
+            def timed_encode(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = encode(*args, **kwargs)
+                torch.cuda.synchronize()
+                encode_s.append(time.perf_counter() - t)
+                return out
+            model.encode = timed_encode
+        rng = np.random.default_rng(0)
+        lens = rng.integers(lo, hi + 1, LM_REQUESTS)
+        engine = ServingEngine(model, max_batch=LM_MAX_BATCH)
+        for n in lens:
+            engine.submit(Request(
+                prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                max_new_tokens=LM_NEW_TOKENS))
+        xrng = np.random.RandomState(0)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        done = engine.run(extras_fn=lambda n: stub_extras(cfg, n, xrng))
+        serve_s = time.perf_counter() - t0
+        launches = {k: c.value for k, c in counters.items()}
+        if cfg.is_encdec:
+            del model.encode
+        waves = engine.stats["prefills"]
+        want = {"swa": waves * (cfg.num_layers + cfg.encoder_layers)}
+        if {k: launches[k] for k in want} != want or \
+                any(launches[k] for k in launches if k not in want):
+            raise AssertionError(f"{arch} serving launched {launches}, "
+                                 f"want {want}")
+        toks = [r.out_tokens for r in done]
+        if any(len(t) != LM_NEW_TOKENS for t in toks) or \
+                not all(0 <= x < cfg.vocab_size for t in toks for x in t):
+            raise AssertionError(f"{arch} served tokens out of shape or "
+                                 f"range: {toks}")
+        if waves != 2 or \
+                engine.stats["decode_steps"] != 2 * (LM_NEW_TOKENS - 1):
+            raise AssertionError(f"{arch} serving stats {engine.stats}")
+        for k, v in launches.items():
+            total[k] += v
+        new_tokens = sum(len(t) for t in toks)
+        prefill_s = [w["prefill_s"] for w in engine.waves]
+        rec = {"phase": "modality_serve", "arch": arch,
+               "layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "prefix_len": cfg.prefix_len, "params": n_params,
+               "param_bytes": 4 * n_params, "init_s": init_s,
+               "requests": len(done), "prompt_lens": lens.tolist(),
+               "new_tokens": new_tokens, "waves": engine.waves,
+               "prefill_s_per_wave": prefill_s,
+               "decode_ms_per_step": engine.stats["decode_s"]
+               / engine.stats["decode_steps"] * 1e3,
+               "serve_s": serve_s, "new_tokens_per_s": new_tokens / serve_s,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "first_tokens": [t[:4] for t in toks], "launches": launches}
+        if cfg.is_encdec:
+            rec["encode_s_per_wave"] = encode_s
+            rec["decoder_prefill_s_per_wave"] = [
+                p - e for p, e in zip(prefill_s, encode_s)]
+        rec["consistency"] = phase_consistency(model, hi)
+        rec["seconds"] = time.perf_counter() - t_arch
+        emit(rec)
+        recs.append(rec)
+        del model, engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "modalities", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, recs
+
+
+def check_modalities_on_card() -> dict:
+    """The reduced paligemma-3b and whisper-medium, forward only, on the
+    card and on the CPU from the same parameters, tokens and extras, fp32
+    and bf16: the logits within TRAIN_CONSISTENCY_TOL of max |logit| (the
+    card's through the swa kernel with its prefix, the CPU's through the
+    plain version)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.io import stub_extras
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, _, _ in MODAL_TRAFFIC:
+        out[arch] = {}
+        for dn, tol in TRAIN_CONSISTENCY_TOL.items():
+            cfg = dataclasses.replace(get_reduced(arch), dtype=dn)
+            model = build_model(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(7))
+            rng = np.random.RandomState(4)
+            toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40)))
+            extras = {k: torch.from_numpy(v)
+                      for k, v in stub_extras(cfg, 2, rng).items()}
+            logits = {}
+            for dev in ("cpu", DEVICE):
+                model.to(dev)
+                with torch.inference_mode():
+                    x, _ = model(toks.to(dev), **{
+                        k: v.to(dev) for k, v in extras.items()})
+                    logits[dev] = model.unembed(x).float().cpu()
+            scale = float(logits["cpu"].abs().max())
+            err = float((logits[DEVICE] - logits["cpu"]).abs().max())
+            rec = {"max_abs_diff": err, "max_abs_logit": scale,
+                   "tol": tol, "positions": int(x.shape[1])}
+            if not err <= tol * scale:
+                raise AssertionError(f"{arch} on the card disagrees with "
+                                     f"the CPU in {dn}: {rec}")
+            out[arch][dn] = rec
+    emit({"phase": "modalities_on_card", **out,
+          "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2756,6 +3048,7 @@ def main() -> int:
     kernels.update(check_train_main_shapes())
     kernels["lru_scan"]["train_shape"] = kernels.pop("lru_scan_train")
     check_train_consistency()
+    check_modalities_on_card()
     counters = launch_counters()
 
     ac = AlchemistContext(device=DEVICE)
@@ -2821,7 +3114,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family_launches, _ = phase_families(counters)
-    for got in (dense_launches, family_launches):
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the prefix-VLM and the encoder-decoder at full width and depth
+    modal_launches, _ = phase_modalities(counters)
+    for got in (dense_launches, family_launches, modal_launches):
         for k, v in got.items():
             launches[k] += v
 

@@ -2,10 +2,9 @@
 ``get_reduced``, with the JAX package's ids, and its ``ASSIGNED`` list,
 ``supports_shape`` and ``shape_by_name``.
 
-The registry lists the architectures whose every block kind the port
-builds: RecurrentGemma and the decoder-only text families (dense, RWKV6,
-MLA with MoE). The JAX package's prefix-VLM and encoder-decoder ids raise,
-naming the ROADMAP item that brings them.
+The registry lists every architecture of the JAX package: RecurrentGemma,
+the decoder-only text families (dense, RWKV6, MLA with MoE), the prefix-LM
+VLM (PaliGemma) and the encoder-decoder (Whisper).
 """
 from __future__ import annotations
 
@@ -14,10 +13,12 @@ from repro_torch.configs import (
     codeqwen1_5_7b,
     deepseek_v2_236b,
     deepseek_v2_lite_16b,
+    paligemma_3b,
     qwen3_4b,
     recurrentgemma_9b,
     rwkv6_1_6b,
     stablelm_1_6b,
+    whisper_medium,
     yi_34b,
 )
 
@@ -27,6 +28,8 @@ _REGISTRY = {
     deepseek_v2_lite_16b.ID: (deepseek_v2_lite_16b.config,
                               deepseek_v2_lite_16b.reduced),
     stablelm_1_6b.ID: (stablelm_1_6b.config, stablelm_1_6b.reduced),
+    paligemma_3b.ID: (paligemma_3b.config, paligemma_3b.reduced),
+    whisper_medium.ID: (whisper_medium.config, whisper_medium.reduced),
     rwkv6_1_6b.ID: (rwkv6_1_6b.config, rwkv6_1_6b.reduced),
     deepseek_v2_236b.ID: (deepseek_v2_236b.config, deepseek_v2_236b.reduced),
     qwen3_4b.ID: (qwen3_4b.config, qwen3_4b.reduced),
@@ -35,17 +38,14 @@ _REGISTRY = {
     codeqwen1_5_7b.ID: (codeqwen1_5_7b.config, codeqwen1_5_7b.reduced),
 }
 
-# the JAX package's architectures the port cannot build yet
-_NOT_PORTED = ("paligemma-3b", "whisper-medium")
-
 # The 10 assigned architecture ids (qwen3-4b-sw is a variant, not
-# assigned), as the JAX package lists them; the two of _NOT_PORTED raise.
+# assigned), as the JAX package lists them.
 ASSIGNED = [
     recurrentgemma_9b.ID,
     deepseek_v2_lite_16b.ID,
     stablelm_1_6b.ID,
-    "paligemma-3b",
-    "whisper-medium",
+    paligemma_3b.ID,
+    whisper_medium.ID,
     rwkv6_1_6b.ID,
     deepseek_v2_236b.ID,
     qwen3_4b.ID,
@@ -59,10 +59,6 @@ ALL_ARCHS = list(_REGISTRY)
 def _lookup(arch: str):
     if arch in _REGISTRY:
         return _REGISTRY[arch]
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not in the port yet: the prefix-VLM "
-            "and the encoder-decoder come with ROADMAP A11c-4 and A11c-5")
     raise KeyError(f"unknown architecture {arch!r} (ported: {ALL_ARCHS})")
 
 

@@ -1,13 +1,22 @@
-// Sliding-window causal attention: out[b, h, i] = softmax_j(q_i . k_j *
-// D^-0.5) v_j over the keys j in (i - window, i], for q (B, H, S, D) and
-// k, v (B, K, S, D), H a multiple of K (GQA: head h reads kv head
-// h / (H / K), never a repeated copy). fp32 or bf16 in (all three the
-// same type), out in the input type.
+// Sliding-window causal attention with an optional bidirectional prefix:
+// out[b, h, i] = softmax_j(q_i . k_j * D^-0.5) v_j over the keys j that
+// are visible to query i,
+//
+//   (j <= i || (j < P && i < P)) && j > i - window && j < S,
+//
+// for q (B, H, S, D) and k, v (B, K, S, D), H a multiple of K (GQA: head h
+// reads kv head h / (H / K), never a repeated copy). P = 0 is causal
+// attention over the window; 0 < P <= S makes the first P positions attend
+// to each other in both directions (a prefix-LM's image patches); P = S
+// with window = S is bidirectional attention (an encoder). fp32 or bf16 in
+// (all three the same type), out in the input type.
 //
 // Replaces the TPU kernel src/repro/kernels/swa/swa.py::swa_pallas
 // (_swa_kernel). In the port it is the prefill of every local-attention
-// layer of RecurrentGemma (repro_torch/nn/attention.py), which the JAX
-// package computes with a masked softmax in XLA.
+// layer of RecurrentGemma, of every global layer (window = S) of the
+// decoder-only families, of PaliGemma's prefix-LM layers (prefix 256) and
+// of Whisper's encoder (prefix = window = S) (repro_torch/nn/attention.py),
+// which the JAX package computes with a masked softmax in XLA.
 //
 // Bound on the H100: operations. 4 D flops per (query, visible key) pair,
 // about 0.41 TFLOP of bf16 products at the main path's B 4, H 16, S 4,096,
@@ -44,11 +53,17 @@
 //     2^-17;
 //   * k and v tiles arrive by cp.async: v of this step loads while S is
 //     computed, k of the next step while P V is computed;
-//   * each q block walks only the 64-key blocks of its band; the mask is
-//     evaluated only on blocks that cross the diagonal, the window's lower
-//     edge or the end of S; every interior block takes the unmasked path;
+//   * each q block walks only the 64-key blocks of its band, and a q
+//     block that starts inside the prefix also the keys up to P - 1; the
+//     mask is evaluated only on blocks that cross the diagonal (unless
+//     keys and queries all lie inside the prefix), the window's lower edge
+//     or the end of S; every other block takes the unmasked path. A block
+//     wholly below the diagonal is visible whatever P is (the prefix only
+//     adds pairs), so a block that crosses P needs the exact test only
+//     where it is above the diagonal;
 //   * q blocks run last-first, so the blocks with the most keys start
-//     first and the short ones fill the tail.
+//     first and the short ones fill the tail (with a prefix the first
+//     blocks read P keys each: at P = S every block reads all S).
 // The 16 x D output accumulator of a warp lives in registers (128 fp32
 // per thread at D = 256). mma.sync and not wgmma: a first wgmma version
 // (Q K^T from shared memory, P V with P from registers), its products and
@@ -64,8 +79,8 @@
 // rows padded to 65) and the v tile row-major; the 64 x 64 probabilities
 // go through shared memory for the P V product: 215 KB at D = 256.
 //
-// Both: keys outside the band, and the ragged tail past S, get
-// probability 0; the launcher raises the block's dynamic shared-memory
+// Both: keys outside the band and the prefix, and the ragged tail past S,
+// get probability 0; the launcher raises the block's dynamic shared-memory
 // limit above the 48 KB default (up to 227 KB on the H100); head dims 32,
 // 64, 128 and 256. Given an lse buffer (fp32, contiguous (B, H, S)), both
 // also write each row's natural log-sum-exp of its scaled, masked scores,
@@ -124,7 +139,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                   int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
                   int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t window,
-                  float scale_log2, float* __restrict__ lse) {
+                  int64_t prefix, float scale_log2,
+                  float* __restrict__ lse) {
   constexpr int LD = D + 8;   // padded shared row, in elements
   constexpr int NO = D / 8;   // 8-column output tiles of a warp
   extern __shared__ __align__(16) unsigned char smem[];
@@ -147,16 +163,26 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   const bf16* vb = v + bi * v_sb + kvh * v_sh;
 
   const int64_t q_last = q0 + TC_BQ - 1 < s ? q0 + TC_BQ - 1 : s - 1;
+  // the last key any query of the block sees: its own diagonal, or the
+  // end of the prefix for a block that starts inside it
+  const int64_t k_last = q0 < prefix && prefix - 1 > q_last ? prefix - 1
+                                                             : q_last;
   const int64_t lo = q0 - window + 1 > 0 ? q0 - window + 1 : 0;
   const int64_t k_begin = lo / TC_BK * TC_BK;
+  // every query of the block inside the prefix
+  const bool q_in_prefix = q0 + TC_BQ <= prefix;
 
   tc_load_tile<D>(qs, qb, q_ss, q0, s, tid);
   tc_load_tile<D>(ks, kb, k_ss, k_begin, s, tid);
   tc::cp_async_commit();
 
-  // this thread's two query rows
+  // this thread's two query rows, and the last key each sees: its
+  // diagonal, or the prefix's last key for a row inside the prefix
+  // (j <= i || (j < P && i < P) is j <= last(i), as P - 1 >= i there)
   const int64_t r0 = q0 + warp * 16 + g;
   const int64_t r1 = r0 + 8;
+  const int64_t last0 = r0 < prefix ? prefix - 1 : r0;
+  const int64_t last1 = r1 < prefix ? prefix - 1 : r1;
   float m0 = -INFINITY, m1 = -INFINITY;   // running row max (base 2)
   float l0 = 0.f, l1 = 0.f;               // this thread's share of the sum
   float acc[NO][4];
@@ -174,7 +200,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   const uint32_t v_addr = tc::smem_u32(
       vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8);
 
-  for (int64_t k0 = k_begin; k0 <= q_last; k0 += TC_BK) {
+  for (int64_t k0 = k_begin; k0 <= k_last; k0 += TC_BK) {
     tc::cp_async_wait<0>();
     __syncthreads();   // k (and q) landed; every warp is done with v
     tc_load_tile<D>(vs, vb, v_ss, k0, s, tid);
@@ -198,9 +224,12 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
       }
     }
 
-    // the band and the end of S: masked only where a block crosses them
-    const bool masked = k0 + TC_BK - 1 > q0 ||
-                        k0 <= q0 + TC_BQ - 1 - window || k0 + TC_BK > s;
+    // the diagonal, the band and the end of S: masked only where a block
+    // crosses them; above the diagonal every pair is visible where keys
+    // and queries all lie inside the prefix
+    const bool masked =
+        (k0 + TC_BK - 1 > q0 && !(q_in_prefix && k0 + TC_BK <= prefix)) ||
+        k0 <= q0 + TC_BQ - 1 - window || k0 + TC_BK > s;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -210,7 +239,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
         if (masked) {
           const int64_t kj = k0 + j * 8 + 2 * t + (e & 1);
           const int64_t qi = e < 2 ? r0 : r1;
-          if (!(kj <= qi && kj > qi - window && kj < s)) x = -INFINITY;
+          const int64_t last = e < 2 ? last0 : last1;
+          if (!(kj <= last && kj > qi - window && kj < s)) x = -INFINITY;
         }
         sc[j][e] = x;
         if (e < 2)
@@ -246,7 +276,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 
     tc::cp_async_wait<0>();
     __syncthreads();   // v landed; every warp is done with k
-    if (k0 + TC_BK <= q_last) {
+    if (k0 + TC_BK <= k_last) {
       tc_load_tile<D>(ks, kb, k_ss, k0 + TC_BK, s, tid);
       tc::cp_async_commit();
     }
@@ -311,8 +341,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-              const int64_t* st, int64_t window, float scale, float* lse,
-              cudaStream_t stream) {
+              const int64_t* st, int64_t window, int64_t prefix, float scale,
+              float* lse, cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       swa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -324,7 +354,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), heads,
       heads / kv_heads, s, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], window, scale * LOG2E, lse);
+      st[7], st[8], st[9], st[10], st[11], window, prefix, scale * LOG2E,
+      lse);
   return (int)cudaGetLastError();
 }
 
@@ -360,8 +391,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                int64_t group, int64_t s, int64_t q_sb, int64_t q_sh,
                int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-               int64_t o_sh, int64_t o_ss, int64_t window, float scale,
-               float* __restrict__ lse) {
+               int64_t o_sh, int64_t o_ss, int64_t window, int64_t prefix,
+               float scale, float* __restrict__ lse) {
   constexpr int DJ = D / 16;   // output columns of a thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* ps = reinterpret_cast<float*>(smem);              // [BQ][KP]
@@ -400,8 +431,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   const int64_t q_last = q0 + BQ - 1 < s ? q0 + BQ - 1 : s - 1;
+  // a block that starts inside the prefix also reads the keys up to P - 1
+  const int64_t k_last = q0 < prefix && prefix - 1 > q_last ? prefix - 1
+                                                             : q_last;
   const int64_t lo = q0 - window + 1 > 0 ? q0 - window + 1 : 0;
-  for (int64_t k0 = lo / BK * BK; k0 <= q_last; k0 += BK) {
+  for (int64_t k0 = lo / BK * BK; k0 <= k_last; k0 += BK) {
     __syncthreads();   // the previous step is done with kt, vs and ps
     for (int e = tid; e < BK * D; e += THREADS) {
       const int r = e / D;
@@ -434,12 +468,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int64_t qi = q0 + ty + 16 * i;
+      // the last key row qi sees: its diagonal, or the prefix's last key
+      const int64_t last = qi < prefix ? prefix - 1 : qi;
       bool ok[4];
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int64_t kj = k0 + tx + 16 * j;
-        ok[j] = kj <= qi && kj > qi - window && kj < s;
+        ok[j] = kj <= last && kj > qi - window && kj < s;
         sc[i][j] = ok[j] ? sc[i][j] * scale : NEG;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -496,8 +532,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-                const int64_t* st, int64_t window, float scale, float* lse,
-                cudaStream_t stream) {
+                const int64_t* st, int64_t window, int64_t prefix,
+                float scale, float* lse, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<float, D>();
   cudaError_t err = cudaFuncSetAttribute(
       swa_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -508,7 +544,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), heads,
       heads / kv_heads, s, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], window, scale, lse);
+      st[7], st[8], st[9], st[10], st[11], window, prefix, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -516,13 +552,13 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
-           const int64_t* st, int64_t window, float scale, float* lse,
-           cudaStream_t stream) {
+           const int64_t* st, int64_t window, int64_t prefix, float scale,
+           float* lse, cudaStream_t stream) {
   if (dtype == 0)
     return launch_simt<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
-                          scale, lse, stream);
+                          prefix, scale, lse, stream);
   return launch_tc<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
-                      scale, lse, stream);
+                      prefix, scale, lse, stream);
 }
 
 }  // namespace
@@ -531,29 +567,31 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // 64, 128, 256. strides: 12 element strides, (batch, head, position) of
 // q, k, v and o in that order; D is contiguous. batch * heads <= 65,535
 // (the wrapper checks). For bf16 every position stride is a multiple of 8
-// and every base 16-byte aligned (cp.async; the wrapper checks). lse: null,
-// or fp32 contiguous (B, H, S) that receives each row's log-sum-exp.
-// Returns a cudaError_t.
+// and every base 16-byte aligned (cp.async; the wrapper checks). window
+// >= 1; prefix in [0, S] (the wrapper checks). lse: null, or fp32
+// contiguous (B, H, S) that receives each row's log-sum-exp. Returns a
+// cudaError_t.
 extern "C" int swa_launch(int dtype, int head_dim, const void* q,
                           const void* k, const void* v, void* o,
                           int64_t batch, int64_t heads, int64_t kv_heads,
                           int64_t s, const int64_t* strides, int64_t window,
-                          float scale, void* lse_out, void* stream) {
+                          int64_t prefix, float scale, void* lse_out,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   switch (head_dim) {
     case 32:
       return launch<32>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, scale, lse, st);
+                        strides, window, prefix, scale, lse, st);
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, scale, lse, st);
+                        strides, window, prefix, scale, lse, st);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, scale, lse, st);
+                         strides, window, prefix, scale, lse, st);
     case 256:
       return launch<256>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, scale, lse, st);
+                         strides, window, prefix, scale, lse, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,8 +9,10 @@ A copy of the JAX package's ``data/pipeline.py``: :meth:`SyntheticLM.batch`
 is the same numpy ``RandomState`` code, so a batch is bit-identical to the
 JAX package's for the same (config, shape, seed, step). :meth:`batches`
 puts each batch on an explicit device, where the JAX package places it by
-sharding rules. Prefix (VLM) and encoder-decoder fields come with ROADMAP
-A11c.
+sharding rules. A prefix-LM's batch also holds ``patch_embeds`` and its
+text is shortened by the prefix; an encoder-decoder's holds ``frames``:
+both fp32 numpy arrays, drawn after the tokens from the same
+``RandomState``.
 """
 from __future__ import annotations
 
@@ -35,12 +37,6 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                  bigram_q: float = 0.5):
-        for what, present in (("a prefix-LM (VLM) prefix", cfg.prefix_len),
-                              ("encoder-decoder frames", cfg.is_encdec)):
-            if present:
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} is not in the port's data "
-                    "pipeline yet (ROADMAP A11c)")
         self.cfg = cfg
         self.shape = shape
         self.seed = seed
@@ -50,11 +46,13 @@ class SyntheticLM:
         self.probs = _zipf_probs(cfg.vocab_size)
 
     def batch(self, step: int) -> dict:
-        """{"tokens", "labels"}: (B, S) int32 numpy arrays."""
+        """{"tokens", "labels"}: (B, S) int32 numpy arrays (S less a
+        prefix-LM's prefix), and fp32 ``patch_embeds`` (B, P, d) or
+        ``frames`` (B, encoder_seq, d_enc)."""
         cfg, shape = self.cfg, self.shape
         rng = np.random.RandomState(self.seed + 100_003 * (step + 1))
         b = shape.global_batch
-        s = shape.seq_len
+        s = shape.seq_len - (cfg.prefix_len or 0)
         toks = np.empty((b, s + 1), np.int64)
         toks[:, 0] = rng.choice(cfg.vocab_size, size=b, p=self.probs)
         zipf = rng.choice(cfg.vocab_size, size=(b, s), p=self.probs)
@@ -62,14 +60,22 @@ class SyntheticLM:
         for t in range(s):
             toks[:, t + 1] = np.where(follow[:, t], self.perm[toks[:, t]],
                                       zipf[:, t])
-        return {
+        out = {
             "tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32),
         }
+        if cfg.prefix_len:
+            out["patch_embeds"] = (0.02 * rng.randn(
+                b, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+        if cfg.is_encdec:
+            out["frames"] = (0.02 * rng.randn(
+                b, cfg.encoder_seq, cfg.encoder_d_model or cfg.d_model)
+            ).astype(np.float32)
+        return out
 
     def batches(self, steps: int, device="cuda") -> Iterator[dict]:
-        """Batches 0 .. steps - 1 as int32 tensors on ``device`` (default
-        cuda, which raises without CUDA)."""
+        """Batches 0 .. steps - 1 as tensors on ``device`` (default cuda,
+        which raises without CUDA)."""
         dev = explicit_device(device, "SyntheticLM.batches")
         for step in range(steps):
             yield to_device(self.batch(step), dev)

@@ -95,9 +95,9 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
-    """The JAX package's ``DecoderLM`` parameter tree, as numpy (e.g.
-    ``jax.tree.map(np.asarray, params)``), as a state dict of the port's
-    ``DecoderLM`` on ``device`` (``model.load_state_dict(...)``).
+    """The JAX package's ``DecoderLM`` or ``EncDecLM`` parameter tree, as
+    numpy (e.g. ``jax.tree.map(np.asarray, params)``), as a state dict of
+    the port's model on ``device`` (``model.load_state_dict(...)``).
 
     The map is a rename plus an unstack:
 
@@ -108,6 +108,8 @@ def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
     ``final_norm/scale``                ``final_norm.scale``
     ``lm_head/embedding``               ``lm_head.embedding``
     ``segments/{i}/b{j}/<path>`` [l]    ``layers.{n}.<path>``
+    ``encoder/blocks/<path>`` [l]       ``encoder.blocks.{l}.<path>``
+    ``encoder/final_norm/<path>``       ``encoder.final_norm.<path>``
     ==================================  ===============================
 
     where ``<path>`` keeps its names with ``/`` read as ``.`` and layer
@@ -129,6 +131,9 @@ def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
                            ``ffn/down_w``, ``ffn/shared/up/w``
     RWKV6 (the whole       ``ln1/scale``, ``r/w``, ``w0``, ``w_a``,
     layer, top level)      ``ln_x_scale``, ``cm_k/w``
+    cross-attention        ``norm_x/scale``, ``norm_x/bias``, ``cross/q/w``,
+    (enc-dec decoder)      ``cross/k/w`` (encoder width in)
+    encoder block          ``norm1/scale``, ``self/q/w``, ``ffn/up/w``
     =====================  =============================================="""
     out: dict[str, torch.Tensor] = {}
 
@@ -152,6 +157,13 @@ def lm_params_from_reference(params, device) -> dict[str, torch.Tensor]:
                         host_to_tensor(arr[lyr], device)
         offset += cycle * count
     for k, v in params.items():
+        if k == "encoder":
+            for path, arr in leaves(v["blocks"], ""):
+                arr = np.asarray(arr)
+                for lyr in range(arr.shape[0]):
+                    out[f"encoder.blocks.{lyr}.{path}"] = \
+                        host_to_tensor(arr[lyr], device)
+            v = {"final_norm": v["final_norm"]}
         if k != "segments":
             out.update((path, host_to_tensor(np.asarray(arr), device))
                        for path, arr in leaves(v, f"{k}."))

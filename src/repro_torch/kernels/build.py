@@ -48,11 +48,11 @@ SIGNATURES = {
     "rf_map": ("rf_map_launch",
                [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float,
                 _INT, _C]),
-    # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window, scale,
-    # lse or null, stream)
+    # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window,
+    # prefix, scale, lse or null, stream)
     "swa": ("swa_launch",
             [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
-             ctypes.POINTER(_I64), _I64, ctypes.c_float, _C, _C]),
+             ctypes.POINTER(_I64), _I64, _I64, ctypes.c_float, _C, _C]),
     # (dtype, head_dim, q, k, v, o, dout, lse, dvec, dq, dk, dv, dK/dV
     # partials or null, B, H, K, S, splits, 24 strides, window, scale,
     # stream)

@@ -11,9 +11,10 @@ from repro_torch.kernels import build, device
 
 
 def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int, with_lse: bool = False
+             window: int, with_lse: bool = False, prefix: int = 0
              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Sliding-window causal attention on the card. q (B, H, S, D), k and v
+    """Sliding-window causal attention on the card, the first ``prefix``
+    positions bidirectional among themselves. q (B, H, S, D), k and v
     (B, K, S, D), one type (fp32/bf16), any strides with D contiguous.
     Returns (out, lse): out in q's type, laid out like q (``empty_like``),
     so a (B, S, H, D) buffer viewed as (B, H, S, D) comes back as such a
@@ -29,7 +30,8 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.swa_launch(device.dtype_code(q), d, q.data_ptr(),
                              k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                             h, k.shape[1], s, strides, window, d ** -0.5,
+                             h, k.shape[1], s, strides, window, prefix,
+                             d ** -0.5,
                              lse.data_ptr() if lse is not None else None,
                              device.stream_ptr(q))
     build.check("swa", err)

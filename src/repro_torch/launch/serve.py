@@ -2,9 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --device cpu
 
 The model is the architecture's reduced configuration with random
-parameters from a generator seeded 0, as the JAX package's launcher does.
+parameters from a generator seeded 0, as the JAX package's launcher does;
+a prefix-LM's patch embeddings and an encoder-decoder's frames are drawn
+for each wave as the JAX package's launcher draws them.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 
 from repro_torch.common.device import explicit_device
 from repro_torch.configs import ALL_ARCHS, get_reduced
-from repro_torch.models.model import DecoderLM
+from repro_torch.models.io import stub_extras
+from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServingEngine
 
 
@@ -31,8 +35,8 @@ def main(argv=None) -> None:
 
     dev = explicit_device(args.device, "repro_torch.launch.serve")
     cfg = get_reduced(args.arch)
-    model = DecoderLM(cfg, device=dev,
-                      generator=torch.Generator(dev).manual_seed(0))
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
     engine = ServingEngine(model, max_batch=args.max_batch)
     rng = np.random.RandomState(0)
     for _ in range(args.requests):
@@ -41,7 +45,7 @@ def main(argv=None) -> None:
                                rng.randint(4, 24)).astype(np.int32),
             max_new_tokens=args.max_new))
     t0 = time.perf_counter()
-    done = engine.run()
+    done = engine.run(extras_fn=lambda n: stub_extras(cfg, n, rng))
     dt = time.perf_counter() - t0
     new = sum(len(r.out_tokens) for r in done)
     print(f"{len(done)} requests, {new} tokens, {dt:.2f}s "

@@ -19,7 +19,7 @@ from repro_torch.common.config import ShapeConfig, TrainConfig
 from repro_torch.common.device import explicit_device
 from repro_torch.configs import ALL_ARCHS, get_config, get_reduced
 from repro_torch.data.pipeline import SyntheticLM, to_device
-from repro_torch.models.model import DecoderLM
+from repro_torch.models.model import build_model
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optim import adamw_init, master_params
@@ -40,8 +40,8 @@ def main(argv=None) -> None:
 
     dev = explicit_device(args.device, "repro_torch.launch.train")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    model = DecoderLM(cfg, device=dev,
-                      generator=torch.Generator(dev).manual_seed(0))
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
     params = master_params(model)
     shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch,
                         mode="train")

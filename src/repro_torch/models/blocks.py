@@ -4,10 +4,13 @@ temporal mixer (attention / local attention / MLA / RG-LRU) and an FFN
 as in the JAX package: its layer owns both residual branches
 (:class:`RWKVBlock`, whose parameters sit at the layer's top level).
 
-Every block returns ``(x, new_cache, aux)``: aux is the MoE FFN's router
-loss, None for a dense FFN. Cross-attention (encoder-decoder) and a
-prefix-LM prefix raise ``NotImplementedError``: they come with ROADMAP
-A11c-4 and A11c-5.
+Every block returns ``(x, new_cache, new_cross_cache, aux)``, as the JAX
+package's ``block_apply``: aux is the MoE FFN's router loss, None for a
+dense FFN. A decoder block of an encoder-decoder also holds
+cross-attention (``norm_x``, ``cross``) over the encoder's output, whose
+K/V it writes to its cross cache at prefill and reads from it in decode;
+a global attention block takes the prefix-LM's ``prefix_len``. The
+encoder's layers are :class:`EncoderBlock`.
 """
 from __future__ import annotations
 
@@ -26,17 +29,6 @@ from repro_torch.nn.rglru import RGLRU, RGLRUCache
 from repro_torch.nn.rwkv import RWKV, RWKVCache
 
 
-def check_buildable(cfg: ModelConfig) -> None:
-    """Raise unless the port builds ``cfg``: every block kind it does;
-    an encoder or a prefix it does not yet."""
-    for what, present in (("cross-attention (enc-dec)", cfg.is_encdec),
-                          ("a prefix-LM (VLM) prefix", cfg.prefix_len > 0)):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not in the port yet (ROADMAP "
-                "A11c-4, A11c-5)")
-
-
 def uses_moe(cfg: ModelConfig, layer: int) -> bool:
     """Whether layer ``layer`` takes the MoE FFN: with a MoE config and a
     one-kind pattern, every layer after the first ``first_dense_layers``
@@ -47,7 +39,8 @@ def uses_moe(cfg: ModelConfig, layer: int) -> bool:
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: BlockKind, *,
-                 generator: torch.Generator, device, use_moe: bool = False):
+                 generator: torch.Generator, device, use_moe: bool = False,
+                 cross_attention: bool = False):
         super().__init__()
         if kind == BlockKind.RWKV:
             raise ValueError("an RWKV layer owns both residual branches: "
@@ -67,11 +60,22 @@ class Block(nn.Module):
                           device=device)
         self.ffn = MoE(cfg, generator=generator, device=device) if use_moe \
             else MLP(cfg, generator=generator, device=device)
+        self.cross = None
+        if cross_attention:
+            self.norm_x = norm(cfg.d_model, cfg.use_layernorm, cfg.norm_eps,
+                               device=device)
+            self.cross = Attention(cfg, generator=generator, device=device,
+                                   kv_d_model=cfg.encoder_d_model)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 cache=None, cache_index: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                cross_cache: Optional[KVCache] = None, prefix_len: int = 0,
                 compute_dtype: torch.dtype = torch.bfloat16):
-        """Returns (x, new_cache, aux)."""
+        """Returns (x, new_cache, new_cross_cache, aux). ``enc_out`` (a
+        full forward or prefill) or ``cross_cache`` (decode) feeds the
+        cross-attention; ``prefix_len`` reaches global attention only, as
+        in the JAX package."""
         h = self.norm1(x)
         if self.kind == BlockKind.RECURRENT:
             y, new_cache = self.temporal(h, cache=cache,
@@ -80,45 +84,85 @@ class Block(nn.Module):
             y, new_cache = self.temporal(
                 h, positions, cache=cache, cache_index=cache_index,
                 compute_dtype=compute_dtype)
-        else:
-            window = self.cfg.sliding_window \
-                if self.kind == BlockKind.LOCAL_ATTENTION else 0
+        elif self.kind == BlockKind.LOCAL_ATTENTION:
             y, new_cache = self.temporal(
-                h, positions, window=window, cache=cache,
+                h, positions, window=self.cfg.sliding_window, cache=cache,
+                cache_index=cache_index, compute_dtype=compute_dtype)
+        else:
+            y, new_cache = self.temporal(
+                h, positions, prefix_len=prefix_len, cache=cache,
                 cache_index=cache_index, compute_dtype=compute_dtype)
         x = x + y.to(x.dtype)
+        new_cross = cross_cache
+        if self.cross is not None:
+            yx, new_cross = self.cross(
+                self.norm_x(x), positions, kv_x=enc_out, cross=True,
+                cache=cross_cache, cache_index=cache_index,
+                compute_dtype=compute_dtype)
+            x = x + yx.to(x.dtype)
         aux = None
         if isinstance(self.ffn, MoE):
             y2, aux = self.ffn(self.norm2(x), compute_dtype)
         else:
             y2 = self.ffn(self.norm2(x), compute_dtype)
-        return x + y2.to(x.dtype), new_cache, aux
+        return x + y2.to(x.dtype), new_cache, new_cross, aux
 
 
 class RWKVBlock(RWKV):
     """An RWKV-6 layer as a block: the layer's call, with the block's
-    arguments and its (x, new_cache, aux) return (aux always None)."""
+    arguments and its (x, new_cache, new_cross_cache, aux) return (the
+    cross cache as given, aux always None)."""
 
     kind = BlockKind.RWKV
 
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
                 cache=None, cache_index: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                cross_cache: Optional[KVCache] = None, prefix_len: int = 0,
                 compute_dtype: torch.dtype = torch.bfloat16):
         x, new_cache = super().forward(x, cache=cache,
                                        compute_dtype=compute_dtype)
-        return x, new_cache, None
+        return x, new_cache, cross_cache, None
+
+
+class EncoderBlock(nn.Module):
+    """One encoder layer of an encoder-decoder (the JAX package's
+    ``EncDecLM`` encoder block): pre-norm bidirectional self-attention
+    without rope, then the MLP, with residuals. ``enc_cfg`` is the
+    decoder's config at the encoder's width with every head its own kv
+    head; parameters ``norm1``, ``self``, ``norm2``, ``ffn`` as the JAX
+    package names them."""
+
+    def __init__(self, enc_cfg: ModelConfig, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        d = enc_cfg.d_model
+        self.norm1 = norm(d, enc_cfg.use_layernorm, enc_cfg.norm_eps,
+                          device=device)
+        self.self = Attention(enc_cfg, generator=generator, device=device)
+        self.norm2 = norm(d, enc_cfg.use_layernorm, enc_cfg.norm_eps,
+                          device=device)
+        self.ffn = MLP(enc_cfg, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        y, _ = self.self(self.norm1(x), positions, causal=False,
+                         use_rope=False, compute_dtype=compute_dtype)
+        x = x + y.to(x.dtype)
+        return x + self.ffn(self.norm2(x), compute_dtype).to(x.dtype)
 
 
 def make_block(cfg: ModelConfig, kind: BlockKind, *,
                generator: torch.Generator, device,
                use_moe: bool = False) -> nn.Module:
     """The layer of ``kind``: an :class:`RWKVBlock`, or a :class:`Block`
-    (with the MoE FFN when ``use_moe``)."""
+    (with the MoE FFN when ``use_moe``, and cross-attention in an
+    encoder-decoder's decoder)."""
     if kind == BlockKind.RWKV:
         return RWKVBlock(cfg, generator=generator, device=device)
     return Block(cfg, kind, generator=generator, device=device,
-                 use_moe=use_moe)
+                 use_moe=use_moe, cross_attention=cfg.is_encdec)
 
 
 def init_block_cache(cfg: ModelConfig, kind: BlockKind, batch: int,

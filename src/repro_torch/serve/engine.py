@@ -5,7 +5,9 @@ fixed number of slots; queued requests are admitted in waves (a wave =
 one aligned prefill of left-padded prompts), then decoded step-locked
 until every member finishes (EOS or max_new_tokens). The port runs
 eagerly (CUDA-graph capture of the decode step is ROADMAP A7/A8) and
-synchronises the device before it stamps a time.
+synchronises the device before it stamps a time. A wave's modality
+extras (a prefix-LM's ``patch_embeds``, an encoder-decoder's ``frames``)
+come from ``run(extras_fn=)`` and go to the model's prefill.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def _sync(device: torch.device) -> None:
 
 
 class ServingEngine:
-    """Serves ``model`` (a ``DecoderLM``, parameters included) on the
+    """Serves ``model`` (a ``DecoderLM`` or ``EncDecLM``, parameters
+    included) on the
     model's device. ``stats`` sums over waves as the JAX engine's does;
     ``waves`` keeps one record per wave."""
 
@@ -48,7 +51,8 @@ class ServingEngine:
         self.queue.append(req)
         self.stats["requests"] += 1
 
-    def _wave(self, reqs: list[Request]) -> None:
+    def _wave(self, reqs: list[Request],
+              extras: Optional[dict] = None) -> None:
         dev = self.model.device
         max_len = max(len(r.prompt) for r in reqs)
         b = len(reqs)
@@ -56,12 +60,14 @@ class ServingEngine:
         for i, r in enumerate(reqs):
             toks[i, max_len - len(r.prompt):] = r.prompt     # left-pad
         max_new = max(r.max_new_tokens for r in reqs)
-        total = max_len + max_new
+        total = max_len + max_new + (self.model.cfg.prefix_len or 0)
         tokens = torch.from_numpy(toks).to(dev)
+        extras = {k: torch.as_tensor(v).to(dev)
+                  for k, v in (extras or {}).items()}
 
         _sync(dev)
         t0 = time.perf_counter()
-        logits, state = self.model.prefill(tokens, seq_len=total)
+        logits, state = self.model.prefill(tokens, seq_len=total, **extras)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         self.stats["prefills"] += 1
@@ -97,12 +103,15 @@ class ServingEngine:
                            "new_tokens": sum(len(r.out_tokens)
                                              for r in reqs)})
 
-    def run(self) -> list[Request]:
-        """Drain the queue in waves of up to max_batch."""
+    def run(self, extras_fn=None) -> list[Request]:
+        """Drain the queue in waves of up to max_batch. ``extras_fn(n)``
+        gives a wave of ``n`` requests its modality inputs (name -> numpy
+        array or tensor, moved to the model's device)."""
         finished = []
         while self.queue:
             wave = self.queue[: self.max_batch]
             self.queue = self.queue[self.max_batch:]
-            self._wave(wave)
+            extras = extras_fn(len(wave)) if extras_fn else None
+            self._wave(wave, extras)
             finished.extend(wave)
         return finished

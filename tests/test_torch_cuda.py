@@ -1054,3 +1054,56 @@ def test_cuda_family_loss_and_gradients_equal_the_cpus(cuda, dtype, tol,
     attention = cfg.moe is None
     assert (counters["swa"].value > 0) == attention
     assert (counters["swa_bwd"].value > 0) == attention
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_cuda_swa_with_a_prefix_matches_its_plain_version(cuda, dtype, tol,
+                                                          head_dim):
+    """The prefix-LM and encoder routes: swa at window = S with prefixes
+    on and off the 64-key tile (1, 63, 64, 65, 100, 256) and prefix = S
+    (bidirectional), S = 300 and 320, MQA and GQA, against the plain
+    version on fp32 copies within tol of max |want|; bf16 also within
+    the main shape's limit."""
+    from chip_smoke import swa_excess
+    from repro_torch.kernels.swa.ops import swa_attention
+    from repro_torch.kernels.swa.ref import swa_ref
+    g = torch.Generator().manual_seed(head_dim)
+    for s, h, kh in [(300, 4, 1), (320, 8, 2)]:
+        q = torch.randn(2, s, h, head_dim, generator=g).to(cuda, dtype)
+        k, v = (torch.randn(2, s, kh, head_dim, generator=g).to(cuda, dtype)
+                for _ in range(2))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        for prefix in (1, 63, 64, 65, 100, 256, s):
+            want = swa_ref(q.float(), k.float(), v.float(), s, prefix)
+            with torch.inference_mode():
+                got = swa_attention(q, k, v, window=s, prefix=prefix)
+            torch.testing.assert_close(got.float(), want, rtol=0,
+                                       atol=tol * float(want.abs().max()))
+            if dtype == torch.bfloat16:
+                assert swa_excess(got, want)[1] <= 1.0, prefix
+
+
+@pytest.mark.cuda
+def test_cuda_swa_function_with_a_prefix_raises(cuda):
+    """The backward kernel has no prefix mask (ROADMAP B.7): under
+    autograd a prefix on CUDA tensors raises before anything launches,
+    never a plain fallback; so does swa_backward."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 64, 64, generator=g).to(cuda).requires_grad_()
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    with pytest.raises(NotImplementedError, match="B.7"):
+        swa_ops.swa_attention(q, q, q, window=64, prefix=8)
+    x = q.detach()
+    o, lse = swa_ops.swa_forward(x, x, x, 64, with_lse=True, prefix=8)
+    with pytest.raises(NotImplementedError, match="B.7"):
+        swa_ops.swa_backward(x, x, x, o, lse, x, window=64, prefix=8)
+    assert counters["swa"].value == 1 and counters["swa_bwd"].value == 0
+    # without a prefix the Function runs
+    swa_ops.swa_attention(q, q, q, window=64).sum().backward()
+    assert counters["swa_bwd"].value == 1

@@ -108,9 +108,10 @@ def test_supports_shape_answers_as_the_jax_package(arch, shape):
 
 
 def test_registry_lists_the_jax_packages_ids_but_two():
+    """Since the prefix-VLM and the encoder-decoder were ported, every id
+    of the JAX package, in its order."""
     assert configs.ASSIGNED == REF_ASSIGNED
-    assert set(REF_ALL_ARCHS) - set(configs.ALL_ARCHS) == \
-        {"paligemma-3b", "whisper-medium"}
+    assert configs.ALL_ARCHS == REF_ALL_ARCHS
     assert set(FAMILIES) < set(configs.ALL_ARCHS)
     # the sub-quadratic families take long_500k, the others do not
     long = configs.shape_by_name("long_500k")
@@ -246,9 +247,10 @@ def test_dense_prefill_runs_every_layer_through_the_swa_wrapper(
     in decode."""
     calls = []
 
-    def counting(q, k, v, window):
+    def counting(q, k, v, window, prefix=0):
+        assert prefix == 0
         calls.append(window)
-        return plain(q, k, v, window)
+        return plain(q, k, v, window, prefix)
     plain = swa_ops.swa_ref
     monkeypatch.setattr(swa_ops, "swa_ref", counting)
     cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")

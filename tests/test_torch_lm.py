@@ -4,8 +4,8 @@ package on the same parameters, carried across with
 ``interop.lm_params_from_reference``: layers at the 2e-5 of
 tests/test_nn_layers.py, logits at 1e-4 in fp32 and 3e-2 in bf16, served
 tokens equal. Also the routes the model takes (the swa and lru_scan
-wrappers once per layer per prefill, never in decode) and what the port
-does not build yet."""
+wrappers once per layer per prefill, never in decode). The prefix-VLM and
+the encoder-decoder are tests/test_torch_modalities.py's."""
 import dataclasses
 import functools
 
@@ -279,7 +279,7 @@ def test_profile_serve_counts_overlapping_device_spans_once():
             profile_serve.main(["--arch", ARCH])
 
 
-# ------------------------------------------------------- what is not built
+# ---------------------------------------------------------------- configs
 
 def test_configs_are_the_jax_packages():
     pairs = ((configs.get_reduced(ARCH), ref_get_reduced(ARCH)),
@@ -292,22 +292,6 @@ def test_configs_are_the_jax_packages():
             d["attention_kind"] = d["attention_kind"].value
         assert got == want
     assert configs.get_config(ARCH).num_layers == 38
-
-
-@pytest.mark.parametrize("make", [
-    lambda: configs.get_config("paligemma-3b"),
-    lambda: configs.get_reduced("paligemma-3b"),
-    lambda: configs.get_config("whisper-medium"),
-    lambda: configs.get_reduced("whisper-medium"),
-    lambda: DecoderLM(dataclasses.replace(
-        configs.get_reduced(ARCH), encoder_layers=2, encoder_seq=8),
-        device="cpu"),
-    lambda: DecoderLM(dataclasses.replace(configs.get_reduced(ARCH),
-                                          prefix_len=4), device="cpu"),
-])
-def test_building_what_the_port_lacks_raises(make):
-    with pytest.raises(NotImplementedError, match="A11c"):
-        make()
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -159,6 +159,19 @@ def test_cpu_calls_take_the_plain_versions_and_launch_nothing(monkeypatch):
                            torch.randn(1, 2, 9, 32), window=4), ValueError),
     (lambda: swa_attention(torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32),
                            torch.randn(1, 2, 8, 32), window=0), ValueError),
+    # a prefix is an int in [0, S]
+    (lambda: swa_attention(torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32),
+                           torch.randn(1, 2, 8, 32), window=8, prefix=-1),
+     ValueError),
+    (lambda: swa_attention(torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32),
+                           torch.randn(1, 2, 8, 32), window=8, prefix=9),
+     ValueError),
+    (lambda: swa_attention(torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32),
+                           torch.randn(1, 2, 8, 32), window=8, prefix=True),
+     ValueError),
+    (lambda: swa_attention(torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32),
+                           torch.randn(1, 2, 8, 32), window=8, prefix=2.0),
+     ValueError),
     (lambda: swa_attention(torch.randn(1, 2, 8, 32),
                            torch.randn(1, 2, 8, 32, dtype=torch.bfloat16),
                            torch.randn(1, 2, 8, 32), window=4), TypeError),

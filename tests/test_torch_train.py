@@ -517,14 +517,6 @@ def test_data_pipeline_is_deterministic_and_learnable():
     assert hit > 0.3
 
 
-def test_what_waits_for_a11c_raises():
-    cfg = dataclasses.replace(configs.get_reduced(ARCH), prefix_len=4)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        SyntheticLM(cfg, SHAPE)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        DecoderLM(cfg, device="cpu")
-
-
 # ---------------------------------------------------------------- losses
 
 XENT_DRAWS = [(1, 1, 2, 0), (2, 5, 11, 1), (3, 8, 30, 2), (2, 3, 7, 98)]
