@@ -56,13 +56,19 @@ whisper-medium (24 encoder layers on swa with prefix = window = S over
 1,500 frames, 24 decoder layers causal, cross-attention plain) at their
 published widths, 8 requests each in two waves of 4 with patch
 embeddings or frames drawn per wave, with the same full-forward check.
-Before the main path it also holds the two backward kernels against
-their plain versions at the JAX sweeps and the training shapes, swa at
-window = S at the dense families' shapes, swa with a prefix at
-PaliGemma's and Whisper's encoder's shapes, the reduced RecurrentGemma,
-qwen3-4b, rwkv6-1.6b and deepseek-v2-lite-16b's loss and gradients on the
-card against the CPU, and the reduced paligemma-3b and whisper-medium's
-forward on the card against the CPU.
+Then it trains both at their published widths and full depth (PaliGemma
+B = 4 x 768 positions, Whisper B = 4 x 448 tokens after 1,500 frames),
+bf16 with remat, 4 AdamW steps each after the step-0 gradient check,
+every attention layer's backward on swa_bwd (PaliGemma's with prefix 256,
+Whisper's encoder's with prefix = S), beside the dry run's predicted
+bytes. Before the main path it also holds the two backward kernels
+against their plain versions at the JAX sweeps and the training shapes,
+swa at window = S at the dense families' shapes, swa and swa_bwd with a
+prefix at PaliGemma's and Whisper's encoder's shapes, the reduced
+RecurrentGemma, qwen3-4b, rwkv6-1.6b, deepseek-v2-lite-16b, paligemma-3b
+and whisper-medium's loss and gradients on the card against the CPU, and
+the reduced paligemma-3b and whisper-medium's forward on the card against
+the CPU.
 
 Each phase prints JSON lines; a failing check raises and the script exits
 non-zero. It needs one CUDA card and imports nothing of JAX or of the JAX
@@ -218,7 +224,7 @@ KERNEL_DESIGN = {
 # keys a kernel's record may add to its entry in the kernels line
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
                  "copy_ceiling_ms", "train_shape", "long_prompt",
-                 "causal_shapes", "prefix_shapes",
+                 "causal_shapes", "prefix_shapes", "prefix_launches",
                  "unfused_ms",
                  "lambda_only_ms", "lambda_only_bound_ms")
 
@@ -408,13 +414,15 @@ def _swa_case(rng, dt, dn, s, window, h, kh, d) -> None:
 
 
 def _swa_prefix_case(rng, dt, dn, s, window, prefix, h, kh, d) -> None:
-    """The forward of swa with a bidirectional prefix on (2, s, h, d)
-    queries and (2, s, kh, d) keys and values as (B, S, H, D) views
-    against its plain version (bf16 also to the main shape's limit); its
-    backward takes no prefix on the card (ROADMAP B.7)."""
+    """swa with a bidirectional prefix on (2, s, h, d) queries and
+    (2, s, kh, d) keys and values as (B, S, H, D) views against its plain
+    version (bf16 also to the main shape's limit), and swa_bwd with the
+    prefix, from the forward's lse and fp32 output as training runs it,
+    against its plain version on fp32 copies."""
     import torch
-    from repro_torch.kernels.swa.ops import swa_attention
-    from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.kernels.swa.ops import swa_attention, swa_backward, \
+        swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref, swa_ref
     q = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
     k, v = (_randn(rng, (2, s, kh, d), dt).transpose(1, 2)
             for _ in range(2))
@@ -428,6 +436,15 @@ def _swa_prefix_case(rng, dt, dn, s, window, prefix, h, kh, d) -> None:
             raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
                                  f"{window} prefix {prefix}: {ratio:.3f} x "
                                  "the limit")
+    _, lse, o32 = swa_forward(q, k, v, window, with_lse=True, prefix=prefix,
+                              fp32_out=True)
+    dout = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
+    got = swa_backward(q, k, v, o32, lse, dout, window=window, prefix=prefix)
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
+                            dout.float(), window, prefix)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window} prefix "
+                   f"{prefix}", g, w, GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
 
 
 def check_lm_test_shapes(rng, dt, dn) -> int:
@@ -747,7 +764,9 @@ def check_lm_main_shapes() -> dict:
     del a, x, h0, o
     torch.cuda.empty_cache()
     out["swa"]["causal_shapes"] = check_causal_shapes()
-    out["swa"]["prefix_shapes"] = check_prefix_shapes()
+    # the backward's records go to swa_bwd's entry (main)
+    out["swa"]["prefix_shapes"], out["swa"]["prefix_backward"] = \
+        check_prefix_shapes()
     return out
 
 
@@ -813,24 +832,30 @@ def visible_pairs(s: int, prefix: int) -> int:
     return prefix * prefix + (s * (s + 1) - prefix * (prefix + 1)) // 2
 
 
-def check_prefix_shapes() -> list:
-    """swa with a bidirectional prefix at window = S, the routes of the
-    prefix-LM and the encoder, at PREFIX_SHAPES: PaliGemma's 4 x 8 x 768
-    x 256 over 1 kv head with prefix 256, and Whisper's encoder, 4 x 16 x
-    1,500 x 64 with prefix = S; bf16 (B, S, H, D) views. Each held to the
-    SWA_RTOL / SWA_ATOL_RMS limit against the plain version on fp32
-    copies, which must reject two planted faults, a prefix one key short
-    and no prefix; timed beside the plain version, one
-    ``scaled_dot_product_attention`` call (the prefix mask as a bool
-    mask, k and v repeated to the query heads; non-causal without a mask
-    for the encoder) and the bound: 4 B H D times the visible pairs, P^2
-    + sum_{q=P}^{S-1} (q + 1), at the bf16 rate."""
+def check_prefix_shapes() -> tuple[list, list]:
+    """swa and swa_bwd with a bidirectional prefix at window = S, the
+    routes of the prefix-LM and the encoder in serving and training, at
+    PREFIX_SHAPES: PaliGemma's 4 x 8 x 768 x 256 over 1 kv head with
+    prefix 256, and Whisper's encoder, 4 x 16 x 1,500 x 64 with prefix =
+    S; bf16 (B, S, H, D) views. The forward is held to the SWA_RTOL /
+    SWA_ATOL_RMS limit against the plain version on fp32 copies, the
+    backward (from the forward's lse and fp32 output, as training runs
+    it) to GRAD_TOL and GRAD_RMS_TOL against the plain backward on fp32
+    copies; each limit must reject two planted faults, a prefix one key
+    short and no prefix. Each is timed beside its plain version, one
+    ``scaled_dot_product_attention`` call or its backward (the prefix mask
+    as a bool mask, k and v repeated to the query heads; non-causal
+    without a mask for the encoder) and the bound at the bf16 rate: 4 B H
+    D (forward) or 10 B H D (backward: five products) times the visible
+    pairs, P^2 + sum_{q=P}^{S-1} (q + 1). Returns (the forward's records,
+    the backward's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.swa.ops import swa_attention
-    from repro_torch.kernels.swa.ref import swa_ref
-    out = []
+    from repro_torch.kernels.swa.ops import swa_attention, swa_backward, \
+        swa_forward
+    from repro_torch.kernels.swa.ref import swa_backward_ref, swa_ref
+    out, bwd = [], []
     for n, (arch, b, s, prefix) in enumerate(PREFIX_SHAPES):
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -885,9 +910,56 @@ def check_prefix_shapes() -> list:
                             "as a bool mask",
             "bound_ms": bound, "bound_by": by,
             "seconds": time.perf_counter() - t0})
-        del q, k, v, kx, vx, mask
+        t0 = time.perf_counter()
+        _, lse, o32 = swa_forward(q, k, v, s, with_lse=True, prefix=prefix,
+                                  fp32_out=True)
+        dout = _randn_on_card((b, s, h, d), 70 + n).bfloat16().transpose(1, 2)
+        qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+        got = swa_backward(q, k, v, o32, lse, dout, window=s, prefix=prefix)
+        want = swa_backward_ref(qf, kf, vf, o32, lse, gf, s, prefix)
+        names = ("dq", "dk", "dv")
+        errs = {nm: close_grad(f"swa_bwd {nm} {arch} prefix {prefix}", g, w,
+                               GRAD_TOL["bfloat16"],
+                               GRAD_RMS_TOL["bfloat16"])
+                for nm, g, w in zip(names, got, want)}
+        rms = {nm: grad_rms_ratio(g, w) for nm, g, w in zip(names, got, want)}
+        del got
+        faults = {f"prefix_{p}": max(
+            grad_rms_ratio(g, w) for g, w in zip(swa_backward_ref(
+                qf, kf, vf, o32, lse, gf, s, p), want))
+            for p in (prefix - 1, 0)}
+        del qf, kf, vf, gf, want
+        if not all(r > GRAD_RMS_TOL["bfloat16"] for r in faults.values()):
+            raise AssertionError(f"GRAD_RMS_TOL passes a planted prefix "
+                                 f"fault at {arch}'s shape: {faults}")
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        kxl, vxl = (t.repeat_interleave(h // kh, dim=1) for t in (kl, vl))
+        lib_out = F.scaled_dot_product_attention(
+            ql, kxl, vxl, attn_mask=None if prefix == s else mask)
+        # read q, k, v, the fp32 o, dO and lse once; write dq, dk, dv
+        nbytes = 2.0 * (3 * b * h * s * d + 2 * b * kh * s * d) \
+            + 4.0 * (b * h * s * d + b * h * s)
+        bound, by = bound_ms(nbytes, 10.0 * b * h * d
+                             * visible_pairs(s, prefix), BF16_FLOPS)
+        bwd.append({
+            "arch": arch, "shape": [b, h, kh, s, d, s], "prefix": prefix,
+            "dtype": "bfloat16", "max_abs_err": max(errs.values()),
+            "rms_err_over_rms": rms, "planted_faults_rms": faults,
+            "kernel_ms": cuda_time_ms(lambda: swa_backward(
+                q, k, v, o32, lse, dout, window=s, prefix=prefix)),
+            "plain_ms": cuda_time_ms(lambda: swa_backward_ref(
+                q, k, v, o32, lse, dout, s, prefix)),
+            "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), dout, retain_graph=True)),
+            "library_note": "the backward of scaled_dot_product_attention, "
+                            + ("non-causal" if prefix == s else
+                               "the prefix mask as a bool mask"),
+            "bound_ms": bound, "bound_by": by,
+            "seconds": time.perf_counter() - t0})
+        del q, k, v, kx, vx, mask, dout, lse, o32, ql, kl, vl, kxl, vxl, \
+            lib_out
         torch.cuda.empty_cache()
-    return out
+    return out, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -2667,24 +2739,28 @@ def check_train_main_shapes() -> dict:
 
 #: the reduced models held on the card against the CPU, with the
 #: sequence of their batch: RecurrentGemma's, and one dense, the
-#: RWKV and an MLA + MoE family (160 tokens: one RWKV chunk and 32 steps)
+#: RWKV and an MLA + MoE family (160 tokens: one RWKV chunk and 32 steps),
+#: the prefix-VLM (its 8 patches in the 100) and the encoder-decoder (100
+#: decoder tokens after its 16 frames): swa_bwd with a prefix
 TRAIN_CONSISTENCY_ARCHS = (("recurrentgemma-9b", 100), ("qwen3-4b", 160),
                            ("rwkv6-1.6b", 160),
-                           ("deepseek-v2-lite-16b", 160))
+                           ("deepseek-v2-lite-16b", 160),
+                           ("paligemma-3b", 100), ("whisper-medium", 100))
 
 
 def check_train_consistency() -> dict:
     """Each reduced model of TRAIN_CONSISTENCY_ARCHS on the card and on
     the CPU from the same parameters and batch, fp32 and bf16: the loss
     (and the MoE aux, non-zero on both) and every parameter's gradient
-    (the card's through swa, swa_bwd, lru_scan and its reverse launch),
-    within the tests' tolerances of the gradient's norm."""
+    (the card's through swa, swa_bwd with and without a prefix, lru_scan
+    and its reverse launch), within the tests' tolerances of the
+    gradient's norm."""
     import dataclasses
     import torch
     from repro_torch.common.config import ShapeConfig
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import SyntheticLM, to_device
-    from repro_torch.models.model import DecoderLM
+    from repro_torch.models.model import build_model
     from repro_torch.train.loop import value_and_grad
     from repro_torch.train.optim import master_params
     t_phase = time.perf_counter()
@@ -2697,8 +2773,8 @@ def check_train_consistency() -> dict:
                                 seed=3).batch(0)
             res = {}
             for dev in ("cpu", DEVICE):
-                model = DecoderLM(cfg, device="cpu",
-                                  generator=torch.Generator().manual_seed(7))
+                model = build_model(cfg, device="cpu",
+                                    generator=torch.Generator().manual_seed(7))
                 model.to(dev)
                 res[dev] = value_and_grad(model, master_params(model),
                                           to_device(batch, dev),
@@ -2846,6 +2922,169 @@ def phase_train(counters) -> tuple:
         raise AssertionError(f"training launched {launches}")
     del model, params, gal
     return launches, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: train the prefix-VLM and the encoder-decoder at full size
+# ---------------------------------------------------------------------------
+#: (arch, batch, sequence) at published widths and full depth, bf16,
+#: remat: PaliGemma's 256 patches and 512 text tokens (3.04 B parameters:
+#: 48.6 GB of fp32 masters, gradients and AdamW states); Whisper's 1,500
+#: frames and its 448-token text context (0.81 B, 13 GB)
+MODAL_TRAIN = (("paligemma-3b", 4, 256 + 512), ("whisper-medium", 4, 448))
+MODAL_TRAIN_STEPS = 4
+
+
+def modal_train_config(arch: str):
+    """``arch`` at its published widths and depth with remat; the chunked
+    loss for the decoder-only prefix-VLM (the encoder-decoder's loss, as
+    the JAX package's ``EncDecLM.loss``, has no chunked variant)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), remat="full")
+    if not cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, loss_chunk=TRAIN_LOSS_CHUNK)
+    return cfg
+
+
+def phase_train_modalities(counters) -> tuple:
+    """Train paligemma-3b and whisper-medium per MODAL_TRAIN from random
+    fp32 masters (seed 0) in bf16 compute: first the dry run's resident
+    bytes of each step (``launch/dryrun.py`` on the meta device), on a
+    line of their own; then for each model the step-0 gradient (every
+    parameter's finite and not all zero) and MODAL_TRAIN_STEPS AdamW
+    steps on SyntheticLM batches, whose loss must fall. Every attention
+    layer's backward is swa_bwd, PaliGemma's with prefix 256 and
+    Whisper's encoder's with prefix = S: the launches are exact, counted
+    with the prefix launches beside them (``BWD_PREFIX_LAUNCHES``). Then
+    one more loss and backward under ``torch.profiler`` (not counted):
+    the device's busy seconds and idle share, and the kernels by device
+    time. Returns (the launch counts of the phase, the records)."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.profile_serve import busy_us, kernel_spans
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    from repro_torch.train.optim import adamw_init, master_params
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    shapes = {arch: ShapeConfig("train", seq_len=seq, global_batch=b,
+                                mode="train")
+              for arch, b, seq in MODAL_TRAIN}
+    predicted = {}
+    for arch, _, _ in MODAL_TRAIN:
+        cfg = modal_train_config(arch)
+        predicted[arch] = dryrun.train_record(
+            build_model(cfg, device="meta"), cfg, shapes[arch])[
+                "resident_bytes"]
+    emit({"phase": "train_modalities_dryrun",
+          "predicted_resident_bytes": predicted})
+    total = {k: 0 for k in counters}
+    recs = []
+    for arch, b, seq in MODAL_TRAIN:
+        t_arch = time.perf_counter()
+        cfg = modal_train_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(0))
+        params = master_params(model)
+        n_params = sum(p.numel() for p in params.values())
+        data = SyntheticLM(cfg, shapes[arch], seed=0,
+                           bigram_q=TRAIN_BIGRAM_Q)
+        batches = [to_device(data.batch(i), DEVICE)
+                   for i in range(MODAL_TRAIN_STEPS)]
+        tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=MODAL_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        swa_ops.BWD_PREFIX_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        loss0, _, grads = value_and_grad(model, params, batches[0],
+                                         cast_params=True)
+        torch.cuda.synchronize()
+        grad0_s = time.perf_counter() - t0
+        bad = [k for k, g in grads.items()
+               if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+        if bad:
+            raise AssertionError(f"{arch}: step-0 gradients all zero or not "
+                                 f"finite on the card: {bad}")
+        del grads
+        opt = adamw_init(params)
+        step_fn = make_train_step(model, tc)
+        losses, step_s = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.value for k, c in counters.items()}
+        prefix_launches = swa_ops.BWD_PREFIX_LAUNCHES.value
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            value_and_grad(model, params, batches[0], cast_params=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = kernel_spans(prof)
+        by_name: dict = {}
+        for name, _, dur in spans:
+            by_name[name[:80]] = by_name.get(name[:80], 0.0) + dur / 1e3
+        busy = busy_us(spans) / 1e6
+        profiled = {"wall_s": wall, "device_busy_s": busy,
+                    "device_idle_share": 1.0 - busy / wall,
+                    "kernels": len(spans),
+                    "top_kernels_ms": sorted(by_name.items(),
+                                             key=lambda kv: -kv[1])[:8]}
+        del prof, spans
+        backwards = 1 + MODAL_TRAIN_STEPS
+        prefix_layers = cfg.encoder_layers or cfg.num_layers
+        rec = {"phase": "train_modality", "arch": arch,
+               "layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "prefix_len": cfg.prefix_len or cfg.encoder_seq,
+               "params": n_params, "batch": b, "seq": seq,
+               "frames": cfg.encoder_seq, "remat": cfg.remat,
+               "loss_chunk": cfg.loss_chunk, "grad0_s": grad0_s,
+               "loss0": float(loss0), "losses": losses, "step_s": step_s,
+               "median_step_s_after_first": steady,
+               "tokens_per_step": b * seq,
+               "tokens_per_s": b * seq / steady,
+               "frames_per_s": b * cfg.encoder_seq / steady,
+               "max_memory_allocated": peak,
+               "dryrun_resident_bytes": predicted[arch],
+               "launches": launches, "prefix_launches": prefix_launches,
+               "profiled_grad": profiled,
+               "seconds": time.perf_counter() - t_arch}
+        emit(rec)
+        recs.append(rec)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        attn_layers = cfg.num_layers + cfg.encoder_layers
+        if launches["swa_bwd"] != backwards * attn_layers or \
+                prefix_launches != backwards * prefix_layers or \
+                launches["swa"] < launches["swa_bwd"] or \
+                any(v for k, v in launches.items()
+                    if k not in ("swa", "swa_bwd")):
+            raise AssertionError(f"{arch}: training launched {launches}, "
+                                 f"{prefix_launches} with a prefix; want "
+                                 f"{backwards * attn_layers} swa_bwd, "
+                                 f"{backwards * prefix_layers} of them "
+                                 "with a prefix")
+        for k, v in launches.items():
+            total[k] += v
+        del model, params, opt, step_fn, batches, data, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "train_modalities", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, recs
 
 
 # ---------------------------------------------------------------------------
@@ -3047,6 +3286,8 @@ def main() -> int:
     kernels = check_main_shapes()
     kernels.update(check_train_main_shapes())
     kernels["lru_scan"]["train_shape"] = kernels.pop("lru_scan_train")
+    kernels["swa_bwd"]["prefix_shapes"] = kernels["swa"].pop(
+        "prefix_backward")
     check_train_consistency()
     check_modalities_on_card()
     counters = launch_counters()
@@ -3116,9 +3357,18 @@ def main() -> int:
     family_launches, _ = phase_families(counters)
     gc.collect()
     torch.cuda.empty_cache()
-    # the prefix-VLM and the encoder-decoder at full width and depth
+    # the prefix-VLM and the encoder-decoder at full width and depth:
+    # serving, then training
     modal_launches, _ = phase_modalities(counters)
-    for got in (dense_launches, family_launches, modal_launches):
+    gc.collect()
+    torch.cuda.empty_cache()
+    modal_train_launches, modal_train = phase_train_modalities(counters)
+    kernels["swa_bwd"]["prefix_launches"] = sum(
+        r["prefix_launches"] for r in modal_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for got in (dense_launches, family_launches, modal_launches,
+                modal_train_launches):
         for k, v in got.items():
             launches[k] += v
 

@@ -1,7 +1,8 @@
 """Configuration dataclasses for models, shapes and training, copied from
 the JAX package's ``common/config.py`` so that a configuration reads the
-same in both packages. ``MeshConfig`` and the TPU hardware constants are
-left out: the port runs on one device and measures its own card."""
+same in both packages. ``MeshConfig`` is left out: the port runs on one
+device. ``HardwareSpec`` holds the card's constants for the roofline
+(``launch/roofline.py``) in place of the JAX package's TPU ``V5E``."""
 from __future__ import annotations
 
 import dataclasses
@@ -139,3 +140,19 @@ class TrainConfig:
     # GaLore-style offloaded low-rank projection (Alchemist SVD service)
     galore_rank: int = 0
     galore_refresh_every: int = 200
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """One card's peaks for the roofline: NVIDIA's data sheet for the H100
+    SXM (dense bf16 tensor-core rate, HBM3 bandwidth and capacity), the
+    rates the bounds of ``chip_smoke.py`` and ``PERF.md`` use. They assume
+    the full power limit; a card set lower runs slower under load. One
+    device: no interconnect term."""
+    card: str = "NVIDIA H100 80GB HBM3, 700 W"
+    peak_flops: float = 989e12       # bf16 FLOP/s, dense tensor cores
+    hbm_bw: float = 3.35e12          # bytes/s
+    hbm_bytes: float = 80e9          # device memory
+
+
+H100 = HardwareSpec()

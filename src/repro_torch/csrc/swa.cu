@@ -87,7 +87,11 @@
 // lse_i = log sum_j exp(q_i . k_j * D^-0.5), from the running max and sum
 // they already keep (the Pallas kernel's m / l scratch): the backward
 // (swa_bwd.cu) rebuilds P = exp(S * scale - lse) from it without a second
-// softmax pass. Serving passes none and writes nothing more.
+// softmax pass. Serving passes none and writes nothing more. Training's
+// bf16 forward also passes an fp32 (B, H, S, D) buffer, o32, that
+// receives the output before it is rounded: the backward's D =
+// rowsum(dO o) reads it, since a bf16 o loses the gradient of attention
+// that is near uniform (an encoder's), where dP - D nearly cancels.
 #include <math.h>
 
 #include "fp32_tiles.cuh"
@@ -140,7 +144,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                   int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t window,
                   int64_t prefix, float scale_log2,
-                  float* __restrict__ lse) {
+                  float* __restrict__ lse, float* __restrict__ o32) {
   constexpr int LD = D + 8;   // padded shared row, in elements
   constexpr int NO = D / 8;   // 8-column output tiles of a warp
   extern __shared__ __align__(16) unsigned char smem[];
@@ -336,13 +340,26 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
       *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
           tc::pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
   }
+  if (o32 == nullptr) return;
+  // the same output unrounded, for the backward's D = rowsum(dO o)
+  float* of = o32 + bh * s * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < s)
+      *reinterpret_cast<float2*>(of + r0 * D + col) =
+          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r1 < s)
+      *reinterpret_cast<float2*>(of + r1 * D + col) =
+          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
               const int64_t* st, int64_t window, int64_t prefix, float scale,
-              float* lse, cudaStream_t stream) {
+              float* lse, float* o32, cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       swa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -355,7 +372,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(v), static_cast<bf16*>(o), heads,
       heads / kv_heads, s, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], window, prefix, scale * LOG2E,
-      lse);
+      lse, o32);
   return (int)cudaGetLastError();
 }
 
@@ -553,12 +570,12 @@ template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int64_t batch, int64_t heads, int64_t kv_heads, int64_t s,
            const int64_t* st, int64_t window, int64_t prefix, float scale,
-           float* lse, cudaStream_t stream) {
+           float* lse, float* o32, cudaStream_t stream) {
   if (dtype == 0)
     return launch_simt<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
                           prefix, scale, lse, stream);
   return launch_tc<D>(q, k, v, o, batch, heads, kv_heads, s, st, window,
-                      prefix, scale, lse, stream);
+                      prefix, scale, lse, o32, stream);
 }
 
 }  // namespace
@@ -569,29 +586,32 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // (the wrapper checks). For bf16 every position stride is a multiple of 8
 // and every base 16-byte aligned (cp.async; the wrapper checks). window
 // >= 1; prefix in [0, S] (the wrapper checks). lse: null, or fp32
-// contiguous (B, H, S) that receives each row's log-sum-exp. Returns a
+// contiguous (B, H, S) that receives each row's log-sum-exp. o32: null,
+// or (bf16 only) fp32 contiguous (B, H, S, D) that receives the output
+// before it is rounded to bf16 (the backward's D reads it). Returns a
 // cudaError_t.
 extern "C" int swa_launch(int dtype, int head_dim, const void* q,
                           const void* k, const void* v, void* o,
                           int64_t batch, int64_t heads, int64_t kv_heads,
                           int64_t s, const int64_t* strides, int64_t window,
                           int64_t prefix, float scale, void* lse_out,
-                          void* stream) {
+                          void* o32_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  float* o32 = static_cast<float*>(o32_out);
   switch (head_dim) {
     case 32:
       return launch<32>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, prefix, scale, lse, st);
+                        strides, window, prefix, scale, lse, o32, st);
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                        strides, window, prefix, scale, lse, st);
+                        strides, window, prefix, scale, lse, o32, st);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, prefix, scale, lse, st);
+                         strides, window, prefix, scale, lse, o32, st);
     case 256:
       return launch<256>(dtype, q, k, v, o, batch, heads, kv_heads, s,
-                         strides, window, prefix, scale, lse, st);
+                         strides, window, prefix, scale, lse, o32, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

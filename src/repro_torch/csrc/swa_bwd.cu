@@ -1,8 +1,11 @@
-// Backward of sliding-window causal attention (swa.cu): given q (B, H, S,
-// D), k, v (B, K, S, D), the forward's output o (B, H, S, D), its per-row
-// log-sum-exp lse (B, H, S) fp32 and the output's gradient dO (B, H, S,
-// D), compute dQ, dK and dV, FlashAttention-2 style:
-//   P_ij  = exp(q_i . k_j * scale - lse_i)   over the band (i - window, i]
+// Backward of sliding-window causal attention with an optional
+// bidirectional prefix (swa.cu): given q (B, H, S, D), k, v (B, K, S, D),
+// the forward's output o (B, H, S, D), its per-row log-sum-exp lse
+// (B, H, S) fp32 and the output's gradient dO (B, H, S, D), compute dQ, dK
+// and dV, FlashAttention-2 style:
+//   P_ij  = exp(q_i . k_j * scale - lse_i)   over the keys i sees,
+//           j in (i - window, last(i)], last(i) = P - 1 for i < P, else i
+//           (the forward's mask: (j <= i or j, i < P) and j > i - window)
 //   D_i   = sum_d dO_id o_id
 //   dP_ij = dO_i . v_j
 //   dS_ij = P_ij (dP_ij - D_i)
@@ -10,9 +13,18 @@
 //   dK_j  = scale sum_i dS_ij q_i      (over every query head of k's head)
 //   dV_j  = sum_i P_ij dO_i            (likewise)
 // H a multiple of K (GQA: head h reads kv head h / (H / K)). fp32 or bf16
-// in and out (q, k, v, o, dO and the three gradients of one type), lse
-// and D fp32. Nothing is added atomically: every sum runs in a fixed
-// order, so the result repeats bit for bit.
+// in and out (q, k, v, dO and the three gradients of one type; o of that
+// type or fp32: training's bf16 forward hands over its output before
+// rounding, so D reads what the CPU's fp32 plain version reads), lse and
+// D fp32. Nothing is added atomically: every sum runs in a fixed order, so
+// the result repeats bit for bit.
+//
+// The prefix (PaliGemma's 256 image patches; Whisper's encoder at prefix
+// = window = S) changes which tiles a block walks, not the work per tile:
+// a dQ block that starts below P walks keys up to max(q_last, P - 1), as
+// the forward does; a dK/dV block whose keys start below P takes queries
+// from 0 (a key j < P is seen by the queries [0, min(j + window, S))),
+// where without a prefix it starts at its own first key.
 //
 // The TPU kernel src/repro/kernels/swa/swa.py::swa_pallas has no
 // backward: the JAX package differentiates its XLA attention. The port
@@ -141,10 +153,11 @@ __device__ __forceinline__ void load_t(float* dst, const T* src, int64_t ld,
   }
 }
 
-// D_row = sum_d dO_row,d o_row,d: one warp per row of (B * H * S)
-template <typename T>
+// D_row = sum_d dO_row,d o_row,d: one warp per row of (B * H * S); o of
+// dO's type, or fp32 (bf16 training's unrounded output)
+template <typename TO, typename T>
 __global__ void __launch_bounds__(THREADS)
-    swa_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+    swa_bwd_dot(const TO* __restrict__ o, const T* __restrict__ dout,
                 float* __restrict__ dvec, int64_t heads, int64_t s, int d,
                 int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t g_sb,
                 int64_t g_sh, int64_t g_ss, int64_t rows) {
@@ -155,7 +168,7 @@ __global__ void __launch_bounds__(THREADS)
   const int64_t bh = row / s;
   const int64_t bi = bh / heads;
   const int64_t hi = bh % heads;
-  const T* op = o + bi * o_sb + hi * o_sh + i * o_ss;
+  const TO* op = o + bi * o_sb + hi * o_sh + i * o_ss;
   const T* gp = dout + bi * g_sb + hi * g_sh + i * g_ss;
   float acc = 0.f;
   for (int c = lane; c < d; c += 32) acc = fmaf(to_f32(op[c]), to_f32(gp[c]), acc);
@@ -170,8 +183,15 @@ struct Strides {
   int64_t b, h, s;
 };
 
+// the last key query i sees: its diagonal, or the prefix's last key for a
+// query inside the prefix ((j <= i or j, i < P) is j <= last(i))
+template <typename I>
+__device__ __forceinline__ I last_key(I i, I prefix) {
+  return i < prefix ? prefix - 1 : i;
+}
+
 struct Args {
-  int64_t heads, group, s, window;
+  int64_t heads, group, s, window, prefix;
   float scale;
   Strides q, k, v, dout, dq, dk, dv;
 };
@@ -221,8 +241,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
 
   const int64_t q_last = q0 + BQ - 1 < s ? q0 + BQ - 1 : s - 1;
+  // a block that starts inside the prefix also reads the keys up to P - 1
+  const int64_t k_last = q0 < a.prefix && a.prefix - 1 > q_last
+                             ? a.prefix - 1
+                             : q_last;
   const int64_t lo = q0 - a.window + 1 > 0 ? q0 - a.window + 1 : 0;
-  for (int64_t k0 = lo / BK * BK; k0 <= q_last; k0 += BK) {
+  for (int64_t k0 = lo / BK * BK; k0 <= k_last; k0 += BK) {
     __syncthreads();   // the previous step is done with kt, vt and ds
     load_t<T, D>(kt, kb, a.k.s, k0, s, tid);
     load_t<T, D>(vt, vb, a.v.s, k0, s, tid);
@@ -256,7 +280,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < 2; ++j) {
         const int c = tx + 16 * j;
         const int64_t kj = k0 + c;
-        const bool ok = qi < s && kj < s && kj <= qi && kj > qi - a.window;
+        const bool ok = qi < s && kj < s && kj <= last_key(qi, a.prefix) &&
+                        kj > qi - a.window;
         const float p = ok ? expf(sc[i][j] * a.scale - lse_s[r]) : 0.f;
         ds[r * P + c] = p * (dp[i][j] - dv_s[r]);
       }
@@ -324,16 +349,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) acc_k[i][jj] = acc_v[i][jj] = 0.f;
 
-  // queries that see a key of this tile: [k0, k0 + BK - 1 + window - 1]
+  // queries that see a key of this tile: [k0, k0 + BK - 1 + window - 1],
+  // from 0 for a tile that starts inside the prefix
   const int64_t k_last = k0 + BK - 1 < s ? k0 + BK - 1 : s - 1;
   const int64_t q_end = k_last + a.window - 1 < s - 1 ? k_last + a.window - 1
                                                       : s - 1;
+  const int64_t q_begin = k0 < a.prefix ? 0 : k0 / BQ * BQ;
   for (int64_t g = 0; g < a.group; ++g) {
     const int64_t hi = kvh * a.group + g;
     const int64_t bh = bi * a.heads + hi;
     const T* qb = q + bi * a.q.b + hi * a.q.h;
     const T* gb = dout + bi * a.dout.b + hi * a.dout.h;
-    for (int64_t q0 = k0 / BQ * BQ; q0 <= q_end; q0 += BQ) {
+    for (int64_t q0 = q_begin; q0 <= q_end; q0 += BQ) {
       __syncthreads();   // the previous step is done with qt, gt, pt, dst
       load_t<T, D>(qt, qb, a.q.s, q0, s, tid);
       load_t<T, D>(gt, gb, a.dout.s, q0, s, tid);
@@ -373,8 +400,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < 2; ++j) {
           const int c = tx + 16 * j;
           const int64_t qi = q0 + c;
-          const bool ok =
-              qi < s && kj < s && kj <= qi && kj > qi - a.window;
+          const bool ok = qi < s && kj < s &&
+                          kj <= last_key(qi, a.prefix) &&
+                          kj > qi - a.window;
           const float p = ok ? expf(sc[i][j] * a.scale - lse_s[c]) : 0.f;
           pt[r * P + c] = p;
           dst[r * P + c] = p * (dp[i][j] - dv_s[c]);
@@ -503,12 +531,18 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   // positions fit 32 bits (ceil(S / 64) <= 65,535); a window past S is S
   const int s = (int)a.s;
   const int win = (int)(a.window < a.s ? a.window : a.s);
+  const int pre = (int)a.prefix;
   const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * TB;
   const bf16* kb = k + bi * a.k.b + kvh * a.k.h;
   const bf16* vb = v + bi * a.v.b + kvh * a.v.h;
   const int q_last = q0 + TB - 1 < s ? q0 + TB - 1 : s - 1;
+  // the last key any query of the block sees: its own diagonal, or the
+  // end of the prefix for a block that starts inside it
+  const int k_last = q0 < pre && pre - 1 > q_last ? pre - 1 : q_last;
   const int lo = q0 - win + 1 > 0 ? q0 - win + 1 : 0;
   const int k_begin = lo / TB * TB;
+  // every query of the block inside the prefix
+  const bool q_in_prefix = q0 + TB <= pre;
 
   tc_load_tile<D, DQ_THREADS>(qs, q + bi * a.q.b + hi * a.q.h, a.q.s, q0, s,
                               tid);
@@ -526,6 +560,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   const float l1 = r1 < s ? lse[bh * s + r1] * LOG2E : INFINITY;
   const float d0 = r0 < s ? dvec[bh * s + r0] : 0.f;
   const float d1 = r1 < s ? dvec[bh * s + r1] : 0.f;
+  const int last0 = last_key(r0, pre);
+  const int last1 = last_key(r1, pre);
 
   float acc[NO][4];
 #pragma unroll
@@ -550,9 +586,9 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   const uint32_t vs0 = tc::smem_u32(vs);
 
   int buf = 0;
-  for (int k0 = k_begin; k0 <= q_last; k0 += TB, buf ^= 1) {
+  for (int k0 = k_begin; k0 <= k_last; k0 += TB, buf ^= 1) {
     __syncthreads();   // every warp is done with the other buffers
-    if (k0 + TB <= q_last) {
+    if (k0 + TB <= k_last) {
       tc_load_tile<D, DQ_THREADS>(ks + (buf ^ 1) * TB * LD, kb, a.k.s,
                                   k0 + TB, s, tid);
       tc_load_tile<D, DQ_THREADS>(vs + (buf ^ 1) * TB * LD, vb, a.v.s,
@@ -565,9 +601,12 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     __syncthreads();   // this step's k and v (and q, dO) landed
     const uint32_t kt = ks0 + buf * TILE;
     const uint32_t vt = vs0 + buf * TILE;
-    // the band and the end of S: masked only where a tile crosses them
-    const bool masked = k0 + TB - 1 > q0 || k0 <= q0 + TB - 1 - win ||
-                        k0 + TB > s;
+    // the diagonal, the band and the end of S: masked only where a tile
+    // crosses them; above the diagonal every pair is visible where keys
+    // and queries all lie inside the prefix
+    const bool masked =
+        (k0 + TB - 1 > q0 && !(q_in_prefix && k0 + TB <= pre)) ||
+        k0 <= q0 + TB - 1 - win || k0 + TB > s;
 
     float sc[4][4], dp[4][4];
 #pragma unroll
@@ -600,7 +639,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         if (masked) {
           const int kj = k0 + wk * 32 + j * 8 + 2 * t + (e & 1);
           const int qi = e < 2 ? r0 : r1;
-          if (!(kj <= qi && kj > qi - win && kj < s)) p = 0.f;
+          const int last = e < 2 ? last0 : last1;
+          if (!(kj <= last && kj > qi - win && kj < s)) p = 0.f;
         }
         sc[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));
       }
@@ -678,9 +718,16 @@ __device__ __forceinline__ void dkdv_load_step(
 }
 
 // fp32 partial dK and dV of 64 keys of one (batch, kv head) over one
-// split of its query heads: grid (splits, B * K, ceil(S / 64)), so the
-// key tiles with the most queries start first. part holds (2, splits,
-// B * K, S, D): dK (scaled) then dV.
+// split of its query heads: grid (splits, B * K, ceil(S / 64)). The key
+// tile is the grid's slowest axis, so blocks start in key order: without
+// a prefix the tiles with the most queries come first (the last ones lose
+// the queries past S). A tile that starts below P takes its queries from
+// 0, so it has at least as many as any tile after it, and the order still
+// starts the longest work first. Only among the prefix's own tiles at a
+// window < S does a later tile have more (it takes the queries up to
+// k0 + 63 + window - 1): both training shapes with a prefix have window =
+// S, where those tiles all take every query, so the order is kept. part
+// holds (2, splits, B * K, S, D): dK (scaled) then dV.
 template <int D>
 __global__ void __launch_bounds__(KV_THREADS, 1)
     swa_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -724,10 +771,12 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
   // positions fit 32 bits (ceil(S / 64) <= 65,535); a window past S is S
   const int s = (int)a.s;
   const int win = (int)(a.window < a.s ? a.window : a.s);
+  const int pre = (int)a.prefix;
   const int k0 = (int)blockIdx.z * TB;
   const int64_t splits = gridDim.x;
 
-  // this split's heads and each head's query tiles [k0, q_end]
+  // this split's heads and each head's query tiles [q_begin, q_end]: from
+  // k0, or from 0 for a key tile that starts inside the prefix
   const int h_lo = (int)(kvh * a.group + split * per_split);
   const int h_end = (int)((kvh + 1) * a.group);
   const int n_heads = h_lo >= h_end ? 0
@@ -735,7 +784,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
                                                   : (int)per_split);
   const int k_last = k0 + TB - 1 < s ? k0 + TB - 1 : s - 1;
   const int q_end = k_last + win - 1 < s - 1 ? k_last + win - 1 : s - 1;
-  const int n_q = (q_end - k0) / TB + 1;
+  const int q_begin = k0 < pre ? 0 : k0;
+  const int n_q = (q_end - q_begin) / TB + 1;
   const int n_steps = n_heads * n_q;
 
   tc_load_tile<D, KV_THREADS>(ks, k + bi * a.k.b + kvh * a.k.h, a.k.s, k0,
@@ -743,8 +793,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
   tc_load_tile<D, KV_THREADS>(vs, v + bi * a.v.b + kvh * a.v.h, a.v.s, k0,
                               s, tid);
   if (n_steps > 0)
-    dkdv_load_step<D>(qs, gs, lsb, dvb, q, dout, lse, dvec, bi, h_lo, k0, a,
-                      tid);
+    dkdv_load_step<D>(qs, gs, lsb, dvb, q, dout, lse, dvec, bi, h_lo,
+                      q_begin, a, tid);
   tc::cp_async_commit();
 
   const float scale_log2 = a.scale * LOG2E;
@@ -781,14 +831,14 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
 
   for (int step = 0; step < n_steps; ++step) {
     const int buf = step & 1;
-    const int q0 = k0 + (step % n_q) * TB;
+    const int q0 = q_begin + (step % n_q) * TB;
     __syncthreads();   // every warp is done with the other buffers
     if (step + 1 < n_steps) {
       const int nb = buf ^ 1;
       dkdv_load_step<D>(qs + nb * TB * LD, gs + nb * TB * LD, lsb + nb * TB,
                         dvb + nb * TB, q, dout, lse, dvec, bi,
                         h_lo + (step + 1) / n_q,
-                        k0 + ((step + 1) % n_q) * TB, a, tid);
+                        q_begin + ((step + 1) % n_q) * TB, a, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -823,8 +873,11 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
         tc::mma_bf16(dp[2 * jp + 1], av, b[2], b[3]);
       }
     }
-    const bool masked = k0 + TB - 1 > q0 || k0 <= q0 + TB - 1 - win ||
-                        k0 + TB > s || q0 + TB > s;
+    // as dQ's: the prefix block (queries and keys below P) takes the
+    // unmasked path above the diagonal
+    const bool masked =
+        (k0 + TB - 1 > q0 && !(q0 + TB <= pre && k0 + TB <= pre)) ||
+        k0 <= q0 + TB - 1 - win || k0 + TB > s || q0 + TB > s;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = wc * 32 + j * 8 + 2 * t;   // query column of e = 0, 2
@@ -836,7 +889,9 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
         if (masked) {
           const int qi = q0 + ce;
           const int kj = e < 2 ? kj0 : kj1;
-          if (!(kj <= qi && kj > qi - win && qi < s && kj < s)) x = 0.f;
+          if (!(kj <= last_key(qi, pre) && kj > qi - win && qi < s &&
+                kj < s))
+            x = 0.f;
         }
         p[e] = x;
         d[e] = x * (dp[j][e] - drow[ce]);
@@ -960,10 +1015,10 @@ int launch_simt(const float* q, const float* k, const float* v,
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = batch * a.heads * a.s;
-  swa_bwd_dot<float><<<(unsigned)ceil_div(rows, THREADS / 32), THREADS, 0,
-                       stream>>>(o, dout, dvec, a.heads, a.s, D, st[9],
-                                 st[10], st[11], a.dout.b, a.dout.h,
-                                 a.dout.s, rows);
+  swa_bwd_dot<float, float><<<(unsigned)ceil_div(rows, THREADS / 32),
+                              THREADS, 0, stream>>>(
+      o, dout, dvec, a.heads, a.s, D, st[9], st[10], st[11], a.dout.b,
+      a.dout.h, a.dout.s, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)ceil_div(a.s, BQ), (unsigned)(batch * a.heads), 1);
@@ -977,11 +1032,12 @@ int launch_simt(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-// bf16: D, dQ, the dK/dV partials of each split, their sum
+// bf16: D (from a bf16 or an fp32 o), dQ, the dK/dV partials of each
+// split, their sum
 template <int D>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-              const bf16* dout, const float* lse, float* dvec, bf16* dq,
-              bf16* dk, bf16* dv, float* part, int64_t batch,
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const void* o,
+              bool o_fp32, const bf16* dout, const float* lse, float* dvec,
+              bf16* dq, bf16* dk, bf16* dv, float* part, int64_t batch,
               int64_t kv_heads, int64_t splits, const int64_t* st, Args a,
               cudaStream_t stream) {
   constexpr size_t q_bytes = dq_tc_bytes<D>();
@@ -995,10 +1051,15 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                              (int)kv_bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = batch * a.heads * a.s;
-  swa_bwd_dot<bf16><<<(unsigned)ceil_div(rows, THREADS / 32), THREADS, 0,
-                      stream>>>(o, dout, dvec, a.heads, a.s, D, st[9],
-                                st[10], st[11], a.dout.b, a.dout.h, a.dout.s,
-                                rows);
+  const unsigned dot_blocks = (unsigned)ceil_div(rows, THREADS / 32);
+  if (o_fp32)
+    swa_bwd_dot<float, bf16><<<dot_blocks, THREADS, 0, stream>>>(
+        static_cast<const float*>(o), dout, dvec, a.heads, a.s, D, st[9],
+        st[10], st[11], a.dout.b, a.dout.h, a.dout.s, rows);
+  else
+    swa_bwd_dot<bf16, bf16><<<dot_blocks, THREADS, 0, stream>>>(
+        static_cast<const bf16*>(o), dout, dvec, a.heads, a.s, D, st[9],
+        st[10], st[11], a.dout.b, a.dout.h, a.dout.s, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = ceil_div(a.s, TB);
@@ -1023,10 +1084,10 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 
 template <int D>
 int launch(int route, const void* q, const void* k, const void* v,
-           const void* o, const void* dout, const float* lse, float* dvec,
-           void* dq, void* dk, void* dv, void* part, int64_t batch,
-           int64_t kv_heads, int64_t splits, const int64_t* st, Args a,
-           cudaStream_t stream) {
+           const void* o, bool o_fp32, const void* dout, const float* lse,
+           float* dvec, void* dq, void* dk, void* dv, void* part,
+           int64_t batch, int64_t kv_heads, int64_t splits,
+           const int64_t* st, Args a, cudaStream_t stream) {
   if (route == 0)
     return launch_simt<D>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1036,7 +1097,7 @@ int launch(int route, const void* q, const void* k, const void* v,
         st, a, stream);
   return launch_tc<D>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(v), o, o_fp32,
       static_cast<const bf16*>(dout), lse, dvec, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       static_cast<float*>(part), batch, kv_heads, splits, st, a, stream);
@@ -1048,7 +1109,8 @@ int launch(int route, const void* q, const void* k, const void* v,
 // CUDA-core kernels (fp32). swa_bwd_launch dispatches on it.
 extern "C" int swa_bwd_route(int dtype) { return dtype == 1 ? 1 : 0; }
 
-// dtype of q, k, v, o, dout, dq, dk, dv: 0 = float32, 1 = bfloat16.
+// dtype of q, k, v, dout, dq, dk, dv: 0 = float32, 1 = bfloat16; o_dtype
+// o's: dtype, or 0 (fp32) with bf16 (the forward's unrounded output).
 // head_dim one of 32, 64, 128, 256, contiguous in every tensor. strides:
 // 24 element strides, (batch, head, position) of q, k, v, o, dout, dq, dk,
 // dv in that order. lse: fp32 contiguous (B, H, S) from the forward;
@@ -1057,16 +1119,18 @@ extern "C" int swa_bwd_route(int dtype) { return dtype == 1 ? 1 : 0; }
 // elements (cp.async; the wrapper checks), and part, fp32 scratch of
 // 2 * splits * B * K * S * D, the query heads of a kv head split over
 // `splits` (<= 65,535) dK/dV blocks; fp32 ignores both. batch * heads <=
-// 65,535 and ceil(S / 64) <= 65,535 (the wrapper checks). Returns a
-// cudaError_t.
-extern "C" int swa_bwd_launch(int dtype, int head_dim, const void* q,
-                              const void* k, const void* v, const void* o,
-                              const void* dout, const void* lse, void* dvec,
-                              void* dq, void* dk, void* dv, void* part,
-                              int64_t batch, int64_t heads, int64_t kv_heads,
-                              int64_t s, int64_t splits,
-                              const int64_t* strides, int64_t window,
-                              float scale, void* stream) {
+// 65,535 and ceil(S / 64) <= 65,535 (the wrapper checks). window >= 1;
+// prefix in [0, S]: key j visible to query i when (j <= i or j, i <
+// prefix) and j > i - window. Returns a cudaError_t.
+extern "C" int swa_bwd_launch(int dtype, int o_dtype, int head_dim,
+                              const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, void* dvec, void* dq,
+                              void* dk, void* dv, void* part, int64_t batch,
+                              int64_t heads, int64_t kv_heads, int64_t s,
+                              int64_t splits, const int64_t* strides,
+                              int64_t window, int64_t prefix, float scale,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* x = strides;
   Args a;
@@ -1074,6 +1138,7 @@ extern "C" int swa_bwd_launch(int dtype, int head_dim, const void* q,
   a.group = heads / kv_heads;
   a.s = s;
   a.window = window;
+  a.prefix = prefix;
   a.scale = scale;
   a.q = {x[0], x[1], x[2]};
   a.k = {x[3], x[4], x[5]};
@@ -1085,19 +1150,26 @@ extern "C" int swa_bwd_launch(int dtype, int head_dim, const void* q,
   const float* l = static_cast<const float*>(lse);
   float* dvp = static_cast<float*>(dvec);
   const int route = swa_bwd_route(dtype);
+  const bool o_fp32 = o_dtype != dtype;
+  if (o_fp32 && (route == 0 || o_dtype != 0))
+    return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 32:
-      return launch<32>(route, q, k, v, o, dout, l, dvp, dq, dk, dv, part,
-                        batch, kv_heads, splits, strides, a, st);
+      return launch<32>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+                        dv, part, batch, kv_heads, splits, strides, a,
+                        st);
     case 64:
-      return launch<64>(route, q, k, v, o, dout, l, dvp, dq, dk, dv, part,
-                        batch, kv_heads, splits, strides, a, st);
+      return launch<64>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+                        dv, part, batch, kv_heads, splits, strides, a,
+                        st);
     case 128:
-      return launch<128>(route, q, k, v, o, dout, l, dvp, dq, dk, dv, part,
-                         batch, kv_heads, splits, strides, a, st);
+      return launch<128>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+                         dv, part, batch, kv_heads, splits, strides, a,
+                         st);
     case 256:
-      return launch<256>(route, q, k, v, o, dout, l, dvp, dq, dk, dv, part,
-                         batch, kv_heads, splits, strides, a, st);
+      return launch<256>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+                         dv, part, batch, kv_heads, splits, strides, a,
+                         st);
     default:
       return (int)cudaErrorInvalidValue;
   }

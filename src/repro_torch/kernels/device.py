@@ -105,6 +105,20 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
                      "cuda)")
 
 
+def on_meta(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the meta device, False when none
+    does; raises for a mix. A wrapper checks it before :func:`on_cpu`:
+    for meta tensors (the dry run's build-and-step check) it returns
+    empty outputs of its kernel's shapes and dtypes and computes nothing.
+    That shape rule is no plain version: no CPU or CUDA tensor reaches
+    it."""
+    meta = {t.device.type == "meta" for t in tensors}
+    if len(meta) > 1:
+        raise ValueError(f"{kernel}: operands on several devices "
+                         f"{sorted(str(t.device) for t in tensors)}")
+    return meta.pop()
+
+
 def require_nonempty(kernel: str, **dims: int) -> None:
     """The CUDA launchers take no empty dimension (an empty grid is not a
     valid launch)."""

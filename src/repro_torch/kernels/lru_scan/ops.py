@@ -10,7 +10,11 @@ kernel launched reversed on the card, writing a's gradient in the same
 pass): no caller can get states cut off from their inputs' gradients.
 Elsewhere (serving runs under ``torch.inference_mode``) it launches the
 forward kernel alone. The TPU kernel is forward-only; the JAX package
-differentiates ``jax.lax.associative_scan``."""
+differentiates ``jax.lax.associative_scan``.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) take a shape rule: empty
+fp32 states (and da) of the kernel's shapes, nothing computed; no CPU or
+CUDA tensor reaches it."""
 from __future__ import annotations
 
 import torch
@@ -48,6 +52,8 @@ def _check_cuda(what: str, a) -> None:
 
 
 def _scan(a, b, h0) -> torch.Tensor:
+    if device.on_meta("lru_scan", a, b, h0):
+        return torch.empty(a.shape, dtype=torch.float32, device="meta")
     if device.on_cpu("lru_scan", a, b, h0):
         return lru_scan_ref(a, b, h0)
     _check_cuda("lru_scan", a)
@@ -127,6 +133,9 @@ def lru_scan_reverse(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                              f"{tuple(a.shape)} and h0's "
                              f"{tuple(h0.shape)}")
         tensors += (h, h_init)
+    if device.on_meta("lru_scan_reverse", *tensors):
+        y = torch.empty(a.shape, dtype=torch.float32, device="meta")
+        return y if h is None else (y, torch.empty_like(y))
     if device.on_cpu("lru_scan_reverse", *tensors):
         return lru_scan_reverse_ref(a, b, h0, h, h_init)
     _check_cuda("lru_scan_reverse", a)

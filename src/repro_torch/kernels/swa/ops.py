@@ -7,15 +7,17 @@ with window = S is bidirectional attention.
 :func:`swa_attention` is differentiable. Where autograd records (grad mode
 on and an input that requires a gradient) it runs as the
 ``torch.autograd.Function`` :class:`SwaFunction`, whose forward also
-writes each row's log-sum-exp and whose backward is
-:func:`swa_backward` (``csrc/swa_bwd.cu`` on the card): no caller can get
-an output cut off from its inputs' gradients. Elsewhere (serving runs
-under ``torch.inference_mode``) it launches the forward kernel alone and
-writes no log-sum-exp. The TPU kernel is forward-only; the JAX package
-differentiates its XLA attention. The backward kernel does not take a
-prefix yet (ROADMAP B.7): with ``prefix > 0`` on CUDA tensors autograd and
-:func:`swa_backward` raise ``NotImplementedError``, never a plain
-fallback; on the CPU the plain backward honours the prefix."""
+writes each row's log-sum-exp and, in bf16, its output before rounding,
+and whose backward is :func:`swa_backward` (``csrc/swa_bwd.cu`` on the
+card, the prefix included): no caller can get an output cut off from its
+inputs' gradients. Elsewhere (serving runs under
+``torch.inference_mode``) it launches the forward kernel alone and writes
+neither. The TPU kernel is forward-only; the JAX package differentiates
+its XLA attention.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) take a shape rule: empty
+outputs of the kernels' shapes and dtypes, nothing computed; no CPU or
+CUDA tensor reaches it."""
 
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ HEAD_DIMS = (32, 64, 128, 256)
 LAUNCHES = device.LaunchCounter()
 #: backward kernel launches (CUDA tensors only)
 BWD_LAUNCHES = device.LaunchCounter()
+#: of those, the launches with a prefix (PaliGemma's patches, Whisper's
+#: encoder): a sub-count, outside ``kernels.launch_counters()``
+BWD_PREFIX_LAUNCHES = device.LaunchCounter()
 
 
 def _tiles_align(t: torch.Tensor) -> bool:
@@ -40,13 +45,6 @@ def _tiles_align(t: torch.Tensor) -> bool:
     copies 16-byte chunks (cp.async)."""
     return t.data_ptr() % 16 == 0 and all(
         st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
-
-
-#: what a prefix under autograd on CUDA raises: csrc/swa_bwd.cu has no
-#: prefix mask yet
-PREFIX_BACKWARD = ("swa_bwd: the backward kernel does not take a prefix "
-                   "mask yet (ROADMAP B.7); training a prefix-LM or an "
-                   "encoder on the card waits for it")
 
 
 def _check(q, k, v, window, prefix=0) -> None:
@@ -86,47 +84,69 @@ def _check_cuda(what: str, *ts: torch.Tensor) -> None:
 
 
 def swa_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                window: int, with_lse: bool = False, prefix: int = 0):
+                window: int, with_lse: bool = False, prefix: int = 0,
+                fp32_out: bool = False):
     """The forward without autograd: (out, lse or None), operands as
     :func:`swa_attention`'s. With ``with_lse`` it also returns each row's
     log-sum-exp of its scaled, masked scores, fp32 (B, H, S), which
-    :func:`swa_backward` takes."""
+    :func:`swa_backward` takes. ``fp32_out`` (with ``with_lse``) adds a
+    third tensor, the output before it is rounded to q's type, fp32
+    contiguous (the output itself when that is fp32): the ``o`` from
+    which :func:`swa_backward` reads D = rowsum(dO o) unrounded."""
     _check(q, k, v, window, prefix)
+    if fp32_out and not with_lse:
+        raise ValueError("swa: fp32_out comes with with_lse")
+    if device.on_meta("swa", q, k, v):
+        b, h, s, _ = q.shape
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="meta") \
+            if with_lse else None
+        out = torch.empty_like(q)
+        return (out, lse, torch.empty_like(out, dtype=torch.float32)) \
+            if fp32_out else (out, lse)
     if device.on_cpu("swa", q, k, v):
+        if fp32_out:
+            out32, lse = swa_forward_ref(q.float(), k.float(), v.float(),
+                                         window, prefix)
+            return out32.to(q.dtype), lse, out32
         if with_lse:
             return swa_forward_ref(q, k, v, window, prefix)
         return swa_ref(q, k, v, window, prefix), None
     _check_cuda("swa", q, k, v)
-    if q.dtype == torch.bfloat16 and not all(_tiles_align(t)
-                                             for t in (q, k, v)):
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and not all(_tiles_align(t) for t in (q, k, v)):
         raise ValueError("swa: bf16 on CUDA takes 16-byte aligned q, k, v "
                          "whose batch, head and position strides are "
                          "multiples of 8 elements (16-byte tile copies)")
-    out, lse = swa_cuda(q, k, v, window, with_lse, prefix)
+    out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+        if fp32_out and bf16 else None
+    out, lse = swa_cuda(q, k, v, window, with_lse, prefix, out32)
     LAUNCHES.add()
+    if fp32_out:
+        return out, lse, out if out32 is None else out32
     return out, lse
 
 
 class SwaFunction(torch.autograd.Function):
-    """Sliding-window attention with its gradient: the forward kernel
-    (writing lse), then :func:`swa_backward`. With a prefix on CUDA
-    tensors it raises before launching anything (ROADMAP B.7)."""
+    """Sliding-window attention with its gradient: the forward kernel,
+    writing lse and the output before rounding, then
+    :func:`swa_backward`, which reads D = rowsum(dO o) from that fp32
+    output. A bf16 o put the reduced whisper encoder's q and k gradients
+    7 % of their norm from fp32 on the CPU, where attention over similar
+    frames is near uniform and dP - D nearly cancels."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, prefix=0):
-        ctx.cpu, ctx.dtype = device.on_cpu("swa", q, k, v), q.dtype
+        ctx.dtype = q.dtype
+        ctx.cpu = not device.on_meta("swa", q, k, v) and \
+            device.on_cpu("swa", q, k, v)
         if ctx.cpu:
             # the plain versions compute in fp32 whatever the input type:
             # run them on fp32 copies and round the output (and, in the
-            # backward, each gradient) to the input type once, so that
-            # the backward's D = rowsum(dO o) reads the unrounded output
-            # (a bf16 o loses gradients that nearly cancel, as over an
-            # encoder's near-uniform attention)
+            # backward, each gradient) to the input type once
             q, k, v = q.float(), k.float(), v.float()
-        elif prefix:
-            raise NotImplementedError(PREFIX_BACKWARD)
-        out, lse = swa_forward(q, k, v, window, with_lse=True, prefix=prefix)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out32 = swa_forward(q, k, v, window, with_lse=True,
+                                      prefix=prefix, fp32_out=True)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.window = window
         ctx.prefix = prefix
         return out.to(ctx.dtype)
@@ -168,31 +188,32 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int, prefix: int = 0) -> tuple:
     """(dQ, dK, dV) of :func:`swa_attention`, given its inputs, its output
     ``o``, its fp32 (B, H, S) log-sum-exp ``lse`` and ``dout``, the
-    gradient of ``o`` (o's shape and type; any strides: one not contiguous
-    in D, or in bf16 with rows not 16-byte aligned, is copied). The plain
+    gradient of the output (q's shape and type; any strides: one not
+    contiguous in D, or in bf16 with rows not 16-byte aligned, is copied).
+    ``o`` is q's type, or fp32 with bf16 operands (the forward's output
+    before rounding, :func:`swa_forward`'s ``fp32_out``). The plain
     version for CPU tensors, the kernels of ``csrc/swa_bwd.cu`` for CUDA
-    tensors: fp32 on the CUDA cores, bf16 on the tensor cores (P and dS
-    rounded to bf16 as operands of their products), where q, k and v
-    must keep rows 16-byte aligned as in the forward. Gradients come back
-    in the input type, each laid out like its input. A ``prefix`` runs on
-    the CPU only: on CUDA tensors it raises ``NotImplementedError``
-    (ROADMAP B.7)."""
+    tensors, the prefix's mask included: fp32 on the CUDA cores, bf16 on
+    the tensor cores (P and dS rounded to bf16 as operands of their
+    products), where q, k and v must keep rows 16-byte aligned as in the
+    forward. Gradients come back in the input type, each laid out like
+    its input."""
     _check(q, k, v, window, prefix)
     device.require_tensor("swa_bwd", "o", o, 4, contiguous=False)
     device.require_tensor("swa_bwd", "dout", dout, 4, contiguous=False)
     device.require_tensor("swa_bwd", "lse", lse, 3, (torch.float32,))
     if o.shape != q.shape or dout.shape != q.shape or \
-            not (o.dtype == dout.dtype == q.dtype):
+            dout.dtype != q.dtype or o.dtype not in (q.dtype, torch.float32):
         raise ValueError(f"swa_bwd: o {tuple(o.shape)} {o.dtype} and dout "
                          f"{tuple(dout.shape)} {dout.dtype} are not q's "
-                         f"{tuple(q.shape)} {q.dtype}")
+                         f"{tuple(q.shape)} {q.dtype} (o may be fp32)")
     if tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"swa_bwd: lse {tuple(lse.shape)} is not (B, H, S)"
                          f" = {tuple(q.shape[:3])}")
+    if device.on_meta("swa_bwd", q, k, v, o, lse, dout):
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if device.on_cpu("swa_bwd", q, k, v, o, lse, dout):
         return swa_backward_ref(q, k, v, o, lse, dout, window, prefix)
-    if prefix:
-        raise NotImplementedError(PREFIX_BACKWARD)
     bf16 = q.dtype == torch.bfloat16
     if dout.stride(-1) != 1 or (bf16 and not _tiles_align(dout)):
         dout = dout.contiguous()
@@ -202,6 +223,8 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("swa_bwd: bf16 on CUDA takes 16-byte aligned q, "
                          "k, v whose batch, head and position strides are "
                          "multiples of 8 elements (16-byte tile copies)")
-    grads = swa_bwd_cuda(q, k, v, o, lse, dout, window)
+    grads = swa_bwd_cuda(q, k, v, o, lse, dout, window, prefix)
     BWD_LAUNCHES.add()
+    if prefix:
+        BWD_PREFIX_LAUNCHES.add()
     return grads

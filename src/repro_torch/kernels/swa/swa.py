@@ -11,7 +11,8 @@ from repro_torch.kernels import build, device
 
 
 def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int, with_lse: bool = False, prefix: int = 0
+             window: int, with_lse: bool = False, prefix: int = 0,
+             out32: Optional[torch.Tensor] = None
              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Sliding-window causal attention on the card, the first ``prefix``
     positions bidirectional among themselves. q (B, H, S, D), k and v
@@ -19,7 +20,9 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (out, lse): out in q's type, laid out like q (``empty_like``),
     so a (B, S, H, D) buffer viewed as (B, H, S, D) comes back as such a
     view; with ``with_lse`` each row's log-sum-exp, fp32 contiguous
-    (B, H, S), else None (nothing more is written)."""
+    (B, H, S), else None (nothing more is written). ``out32`` (bf16 only:
+    fp32 contiguous (B, H, S, D)) also receives the output before it is
+    rounded."""
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
@@ -33,6 +36,7 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              h, k.shape[1], s, strides, window, prefix,
                              d ** -0.5,
                              lse.data_ptr() if lse is not None else None,
+                             out32.data_ptr() if out32 is not None else None,
                              device.stream_ptr(q))
     build.check("swa", err)
     return out, lse
@@ -62,10 +66,11 @@ def swa_bwd_route(t: torch.Tensor) -> str:
 
 def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                 window: int) -> tuple:
+                 window: int, prefix: int = 0) -> tuple:
     """dQ, dK, dV of :func:`swa_cuda` on the card, from its inputs, its
-    output ``o``, its ``lse`` (fp32 contiguous (B, H, S)) and the output's
-    gradient ``dout`` (o's shape and type). Every tensor D-contiguous,
+    output ``o`` (q's type, or with bf16 the fp32 output before rounding),
+    its ``lse`` (fp32 contiguous (B, H, S)) and the output's gradient
+    ``dout`` (q's shape and type). Every tensor D-contiguous,
     other strides free (bf16: rows 16-byte aligned). Returns the three
     gradients in the input type, each laid out like its input. In bf16
     the dK/dV partials of each split of a kv head's query heads go to an
@@ -82,10 +87,11 @@ def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.load("swa_bwd")
     with torch.cuda.device(q.device):
         err = lib.swa_bwd_launch(
-            device.dtype_code(q), d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            part.data_ptr() if part is not None else None, b, h, kh, s,
-            splits, strides, window, d ** -0.5, device.stream_ptr(q))
+            device.dtype_code(q), device.dtype_code(o), d, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), part.data_ptr() if part is not None else None, b,
+            h, kh, s, splits, strides, window, prefix, d ** -0.5,
+            device.stream_ptr(q))
     build.check("swa_bwd", err)
     return dq, dk, dv

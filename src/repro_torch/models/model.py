@@ -53,17 +53,26 @@ class DecodeState:
     index: int            # number of tokens already in the caches
 
 
+def _default_generator(dev: torch.device) -> torch.Generator:
+    """A generator on ``dev`` seeded 0; on the meta device, where nothing
+    is drawn, a CPU generator (meta tensors take no generator of their
+    own)."""
+    return torch.Generator("cpu" if dev.type == "meta" else dev) \
+        .manual_seed(0)
+
+
 class DecoderLM(nn.Module):
     """``generator`` draws the random parameters (default: a generator on
     ``device`` seeded 0); ``device`` defaults to ``"cuda"`` and raises
-    without CUDA. Parameters are fp32; ops compute in ``cfg.dtype``."""
+    without CUDA, and ``"meta"`` builds the shapes alone (the dry run).
+    Parameters are fp32; ops compute in ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        dev = explicit_device(device, type(self).__name__)
+        dev = explicit_device(device, type(self).__name__, allow_meta=True)
         if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
+            generator = _default_generator(dev)
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.dtype)
         v, d = cfg.vocab_size, cfg.d_model
@@ -232,9 +241,9 @@ class EncDecLM(DecoderLM):
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name} has no encoder (encoder_layers "
                              "= 0): build it as a DecoderLM")
-        dev = explicit_device(device, "EncDecLM")
+        dev = explicit_device(device, "EncDecLM", allow_meta=True)
         if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
+            generator = _default_generator(dev)
         super().__init__(cfg, device=dev, generator=generator)
         enc_cfg = dataclasses.replace(
             cfg, d_model=cfg.encoder_d_model or cfg.d_model,
@@ -331,7 +340,8 @@ class EncDecLM(DecoderLM):
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None) -> DecoderLM:
     """The model of ``cfg``: an :class:`EncDecLM` for an encoder-decoder,
-    else a :class:`DecoderLM`."""
+    else a :class:`DecoderLM`, on ``device`` ("cuda", "cpu", or "meta" for
+    the dry run's shapes)."""
     cls = EncDecLM if cfg.is_encdec else DecoderLM
     return cls(cfg, device=device, generator=generator)
 

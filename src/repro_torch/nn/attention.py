@@ -17,9 +17,9 @@ Routes, by the function computed (never by whether a kernel built):
     of :func:`multihead_attention`, and never builds the (S, S) scores.
     Under autograd (training) that is the kernel's
     ``torch.autograd.Function``, whose backward is the swa backward
-    kernel on the card (without a prefix: a prefix under autograd on the
-    card raises, ROADMAP B.7); its gradients arrive in the layout of the
-    (B, S, H, D) views passed in, so nothing is copied for them;
+    kernel on the card, the prefix included; its gradients arrive in the
+    layout of the (B, S, H, D) views passed in, so nothing is copied for
+    them;
   * every other case — cross-attention (its keys are the encoder's
     frames, not the queries), decode over the cache or the cross cache, a
     softcap — runs the plain masked :func:`multihead_attention`, as the

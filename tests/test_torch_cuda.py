@@ -951,13 +951,14 @@ def test_cuda_swa_backward_repeats_bit_for_bit(cuda):
 def test_cuda_inference_launches_no_backward_and_writes_no_lse(cuda,
                                                               monkeypatch):
     """Serving's route (inference mode) launches the forward kernels only,
-    as before training existed, and asks the swa kernel for no lse."""
+    as before training existed, and asks the swa kernel for neither lse
+    nor its fp32 output (``swa_cuda``'s with_lse and out32)."""
     from repro_torch.kernels.lru_scan.ops import lru_scan
     from repro_torch.kernels.swa import ops as swa_ops
     asked = []
     real = swa_ops.swa_cuda
-    monkeypatch.setattr(swa_ops, "swa_cuda", lambda *a: asked.append(a[-1])
-                        or real(*a))
+    monkeypatch.setattr(swa_ops, "swa_cuda",
+                        lambda *a: asked.append((a[4], a[6])) or real(*a))
     counters = launch_counters()
     for c in counters.values():
         c.reset()
@@ -967,7 +968,7 @@ def test_cuda_inference_launches_no_backward_and_writes_no_lse(cuda,
     with torch.inference_mode():
         swa_ops.swa_attention(q, q, q, window=16)
         lru_scan(a, a, torch.zeros(1, 32, device=cuda))
-    assert asked == [False]
+    assert asked == [(False, None)]
     assert {k: c.value for k, c in counters.items() if c.value} == \
         {"swa": 1, "lru_scan": 1}
 
@@ -1014,18 +1015,21 @@ def test_cuda_swa_at_window_covering_seq_is_global_attention(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 3e-2)])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b",
+                                  "paligemma-3b", "whisper-medium"])
 def test_cuda_family_loss_and_gradients_equal_the_cpus(cuda, dtype, tol,
                                                        arch):
-    """A reduced dense family (global attention through swa and swa_bwd)
-    and a reduced MLA + MoE family: the loss, the MoE aux and every
-    parameter's gradient on the card equal the CPU's (by its norm), from
-    the same parameters and batch."""
+    """A reduced dense family (global attention through swa and swa_bwd),
+    a reduced MLA + MoE family, the reduced prefix-VLM and the reduced
+    encoder-decoder (swa_bwd with a prefix): the loss, the MoE aux and
+    every parameter's gradient on the card equal the CPU's (by its norm),
+    from the same parameters and batch."""
     import dataclasses
     from repro_torch.common.config import ShapeConfig
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import SyntheticLM, to_device
-    from repro_torch.models.model import DecoderLM
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.models.model import build_model
     from repro_torch.train.loop import value_and_grad
     from repro_torch.train.optim import master_params
     cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
@@ -1034,10 +1038,11 @@ def test_cuda_family_loss_and_gradients_equal_the_cpus(cuda, dtype, tol,
     counters = launch_counters()
     for c in counters.values():
         c.reset()
+    swa_ops.BWD_PREFIX_LAUNCHES.reset()
     res = {}
     for dev in ("cpu", cuda):
-        model = DecoderLM(cfg, device="cpu",
-                          generator=torch.Generator().manual_seed(11))
+        model = build_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(11))
         model.to(dev)
         res[str(dev)] = value_and_grad(model, master_params(model),
                                        to_device(batch, dev),
@@ -1054,6 +1059,8 @@ def test_cuda_family_loss_and_gradients_equal_the_cpus(cuda, dtype, tol,
     attention = cfg.moe is None
     assert (counters["swa"].value > 0) == attention
     assert (counters["swa_bwd"].value > 0) == attention
+    prefix = bool(cfg.prefix_len or cfg.is_encdec)
+    assert (swa_ops.BWD_PREFIX_LAUNCHES.value > 0) == prefix
 
 
 @pytest.mark.cuda
@@ -1086,24 +1093,123 @@ def test_cuda_swa_with_a_prefix_matches_its_plain_version(cuda, dtype, tol,
                 assert swa_excess(got, want)[1] <= 1.0, prefix
 
 
+#: the prefix sweep of the backward: (S, query heads, kv heads) as the
+#: forward's, windows S (PaliGemma, Whisper's encoder) and 96 (the band's
+#: lower edge crossing the prefix), prefixes on and off the 64-key tile
+PREFIX_BWD_CASES = [(300, 4, 1), (320, 8, 2)]
+PREFIX_BWD_PREFIXES = (1, 63, 64, 65, 100, 256)
+
+
+def _prefix_backward_cases(cuda, dtype, head_dim, seed):
+    """(q, k, v, dout, window, prefix) over PREFIX_BWD_CASES, windows S
+    and 96 and prefixes PREFIX_BWD_PREFIXES and S, as (B, S, H, D)
+    views."""
+    g = torch.Generator().manual_seed(seed)
+    for s, h, kh in PREFIX_BWD_CASES:
+        q, dout = (torch.randn(2, s, h, head_dim, generator=g).to(
+            cuda, dtype).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn(2, s, kh, head_dim, generator=g).to(
+            cuda, dtype).transpose(1, 2) for _ in range(2))
+        for window in (s, 96):
+            for prefix in PREFIX_BWD_PREFIXES + (s,):
+                yield q, k, v, dout, window, prefix
+
+
 @pytest.mark.cuda
-def test_cuda_swa_function_with_a_prefix_raises(cuda):
-    """The backward kernel has no prefix mask (ROADMAP B.7): under
-    autograd a prefix on CUDA tensors raises before anything launches,
-    never a plain fallback; so does swa_backward."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_cuda_swa_backward_with_a_prefix_matches_its_plain_version(
+        cuda, dtype, tol, head_dim):
+    """ROADMAP B.7: swa_bwd with a bidirectional prefix, prefixes 1, 63,
+    64, 65, 100, 256 and S at S = 300 (MQA) and 320 (GQA), windows S and
+    96, against swa_backward_ref on fp32 copies: within tol of max |grad|
+    and, in bf16, GRAD_RMS_TOL of RMS(grad), from the forward's fp32
+    output (what training passes) and, in bf16, from its bf16 output."""
+    from chip_smoke import GRAD_RMS_TOL, grad_rms_ratio
     from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa.ref import swa_backward_ref
+    swa_ops.BWD_PREFIX_LAUNCHES.reset()
+    n = 0
+    for q, k, v, dout, window, prefix in _prefix_backward_cases(
+            cuda, dtype, head_dim, head_dim):
+        o, lse, o32 = swa_ops.swa_forward(q, k, v, window, with_lse=True,
+                                          prefix=prefix, fp32_out=True)
+        outs = (o32, o) if dtype == torch.bfloat16 else (o,)
+        for out in outs:
+            got = swa_ops.swa_backward(q, k, v, out, lse, dout,
+                                       window=window, prefix=prefix)
+            want = swa_backward_ref(q.float(), k.float(), v.float(),
+                                    out.float(), lse, dout.float(), window,
+                                    prefix)
+            n += 1
+            for name, gg, w, t in zip(("dq", "dk", "dv"), got, want,
+                                      (q, k, v)):
+                what = (name, window, prefix, out.dtype)
+                assert gg.dtype == dtype and gg.stride() == t.stride()
+                err = float((gg.float() - w).abs().max())
+                assert err <= tol * float(w.abs().max()), what
+                if dtype == torch.bfloat16:
+                    assert grad_rms_ratio(gg, w) <= \
+                        GRAD_RMS_TOL["bfloat16"], what
+    torch.cuda.synchronize()
+    assert swa_ops.BWD_PREFIX_LAUNCHES.value == n
+
+
+@pytest.mark.cuda
+def test_cuda_swa_backward_with_a_prefix_repeats_bit_for_bit(cuda):
+    """Two launches of the bf16 backward with PaliGemma's mask shape (16
+    query heads over one kv head, prefix 256 of 700 positions, window =
+    S) give the same bits: the prefix adds no atomic sum."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    g = torch.Generator().manual_seed(8)
+    q, dout = (torch.randn(2, 700, 16, 256, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(2, 700, 1, 256, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    o, lse, o32 = swa_ops.swa_forward(q, k, v, 700, with_lse=True,
+                                      prefix=256, fp32_out=True)
+    first = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=700,
+                                 prefix=256)
+    second = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=700,
+                                  prefix=256)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_swa_function_with_a_prefix_runs_the_backward_kernel(
+        cuda, monkeypatch):
+    """Under autograd a prefix on CUDA tensors runs the forward kernel
+    (writing lse and its fp32 output) and then the backward kernel with
+    the prefix, whose gradient equals the plain backward's on fp32
+    copies; no plain version runs on the card."""
+    from chip_smoke import GRAD_RMS_TOL, grad_rms_ratio
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa.ref import swa_backward_ref, \
+        swa_forward_ref
+
+    def plain(*a):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    for name in ("swa_ref", "swa_forward_ref", "swa_backward_ref"):
+        monkeypatch.setattr(swa_ops, name, plain)
     g = torch.Generator().manual_seed(0)
-    q = torch.randn(1, 2, 64, 64, generator=g).to(cuda).requires_grad_()
+    q, k, v, dout = (torch.randn(1, 2, 200, 64, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
     counters = launch_counters()
     for c in counters.values():
         c.reset()
-    with pytest.raises(NotImplementedError, match="B.7"):
-        swa_ops.swa_attention(q, q, q, window=64, prefix=8)
-    x = q.detach()
-    o, lse = swa_ops.swa_forward(x, x, x, 64, with_lse=True, prefix=8)
-    with pytest.raises(NotImplementedError, match="B.7"):
-        swa_ops.swa_backward(x, x, x, o, lse, x, window=64, prefix=8)
-    assert counters["swa"].value == 1 and counters["swa_bwd"].value == 0
-    # without a prefix the Function runs
-    swa_ops.swa_attention(q, q, q, window=64).sum().backward()
-    assert counters["swa_bwd"].value == 1
+    swa_ops.BWD_PREFIX_LAUNCHES.reset()
+    swa_ops.swa_attention(q, k, v, window=200, prefix=40).backward(dout)
+    torch.cuda.synchronize()
+    assert counters["swa"].value == 1 and counters["swa_bwd"].value == 1
+    assert swa_ops.BWD_PREFIX_LAUNCHES.value == 1
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    o, lse = swa_forward_ref(qf, kf, vf, 200, 40)
+    want = swa_backward_ref(qf, kf, vf, o, lse, dout.float(), 200, 40)
+    for t, w in zip((q, k, v), want):
+        err = float((t.grad.float() - w).abs().max())
+        assert err <= 3e-2 * float(w.abs().max())
+        assert grad_rms_ratio(t.grad, w) <= GRAD_RMS_TOL["bfloat16"]

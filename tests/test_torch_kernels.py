@@ -258,6 +258,29 @@ def test_swa_bwd_launcher_declares_the_c_entry():
     assert n_py == n_c
 
 
+def test_swa_launcher_declares_the_c_entry():
+    """build.SIGNATURES['swa'] declares as many arguments as the extern
+    "C" swa_launch takes (its fp32 output pointer included), and the
+    wrapper passes that many."""
+    import inspect
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.swa import swa
+    src = (build.CSRC / "swa.cu").read_text()
+    params = re.search(r'extern "C" int swa_launch\((.*?)\)\s*\{', src,
+                       re.S).group(1)
+    n_c = len(params.split(","))
+    assert len(build.SIGNATURES["swa"][1]) == n_c
+    call = re.search(r"lib\.swa_launch\((.*?)\)\n",
+                     inspect.getsource(swa.swa_cuda), re.S).group(1)
+    depth, n_py = 0, 1
+    for ch in call:
+        depth += ch in "(["
+        depth -= ch in ")]"
+        n_py += ch == "," and depth == 0
+    assert n_py == n_c
+
+
 def test_backward_check_reads_ptxas_per_instantiation():
     from repro_torch.launch.backward_check import ptxas_report
     log = (

@@ -185,8 +185,10 @@ def test_cpu_calls_take_the_plain_versions_and_launch_nothing(monkeypatch):
                       torch.zeros(1, 8, dtype=torch.bfloat16)), TypeError),
     (lambda: lru_scan(torch.rand(1, 8, 4).transpose(1, 2),
                       torch.rand(1, 4, 8), torch.zeros(1, 8)), ValueError),
+    # meta operands take the dry run's shape rule; a mix of meta and CPU
+    # operands is refused
     (lambda: lru_scan(torch.empty(1, 4, 8, device="meta"),
-                      torch.empty(1, 4, 8, device="meta"),
+                      torch.rand(1, 4, 8),
                       torch.empty(1, 8, device="meta")), ValueError),
 ])
 def test_wrappers_refuse_what_the_kernels_do_not_take(bad, err):

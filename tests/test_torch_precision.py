@@ -227,15 +227,19 @@ def test_swa_bf16_plan_matches_the_kernel_contract_at_ragged_shapes():
         assert swa_excess(swa_bf16_plan(q, k, v, window), want)[1] <= 1.0
 
 
-def _band(s, window):
+def _band(s, window, prefix=0):
     pos = torch.arange(s)
-    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                              - window)
+    key, query = pos[None, :], pos[:, None]
+    return ((key <= query) | ((key < prefix) & (query < prefix))) & \
+        (key > query - window)
 
 
-def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64):
+def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64,
+                      prefix=0):
     """swa_bwd's bf16 route in plain torch: fp32 S and dP of bf16
-    operands, P = exp(S scale - lse) over the band, D = rowsum(dO o),
+    operands, P = exp(S scale - lse) over the band (and the bidirectional
+    ``prefix``), D = rowsum(dO o) from ``o`` as given (bf16, or the
+    forward's fp32 output, which training passes),
     dS = P (dP - D); P and dS rounded once to bf16 for their products;
     dQ summed over 64-key tiles, dK and dV over 64-query tiles and the
     heads of each split of a kv head's query heads (kv_splits), the
@@ -249,7 +253,7 @@ def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64):
     gf = dout.float().reshape(b, kh, g, s, d)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     p = torch.exp(qf @ kf.transpose(-1, -2) * scale
-                  - lse.reshape(b, kh, g, s, 1)) * _band(s, window)
+                  - lse.reshape(b, kh, g, s, 1)) * _band(s, window, prefix)
     dvec = (gf * o.float().reshape(b, kh, g, s, d)).sum(-1, keepdim=True)
     ds = p * (gf @ vf.transpose(-1, -2) - dvec)
     p16, ds16 = _bf16(p), _bf16(ds)
@@ -273,7 +277,7 @@ def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64):
             dv.bfloat16())
 
 
-def swa_bwd_f64(q, k, v, o, lse, dout, window):
+def swa_bwd_f64(q, k, v, o, lse, dout, window, prefix=0):
     """The exact gradients of the same formulas in float64, from the same
     bf16 operands, o and lse."""
     b, h, s, d = q.shape
@@ -283,7 +287,8 @@ def swa_bwd_f64(q, k, v, o, lse, dout, window):
     gf = dout.double().reshape(b, kh, g, s, d)
     kf, vf = k.double()[:, :, None], v.double()[:, :, None]
     p = torch.exp(qf @ kf.transpose(-1, -2) * d ** -0.5
-                  - lse.double().reshape(b, kh, g, s, 1)) * _band(s, window)
+                  - lse.double().reshape(b, kh, g, s, 1)) * _band(s, window,
+                                                                 prefix)
     dvec = (gf * o.double().reshape(b, kh, g, s, d)).sum(-1, keepdim=True)
     ds = p * (gf @ vf.transpose(-1, -2) - dvec)
     return ((ds @ kf * d ** -0.5).reshape(b, h, s, d),
@@ -352,3 +357,74 @@ def test_swa_bwd_bf16_plan_meets_both_limits_at_ragged_shapes(b, h, kh, s,
     args = _bwd_case(1, b, h, kh, s, d, window)
     assert _within_grad_limits(swa_bwd_bf16_plan(*args, window),
                                swa_bwd_f64(*args, window))
+
+
+def _prefix_case(seed, b, h, kh, s, d, window, prefix, similar=False):
+    """bf16 q, k, v, dO from ``seed`` (with ``similar``: k and v one
+    shared row plus 10 % noise, q at 30 %, as over an encoder's similar
+    frames, where attention is near uniform and dP - D nearly cancels),
+    the forward's fp32 o and lse with the prefix, and o rounded to
+    bf16."""
+    rng = np.random.default_rng(seed)
+
+    def rn(n):
+        return torch.from_numpy(rng.standard_normal((b, n, s, d),
+                                                    dtype=np.float32))
+    q, k, v, dout = rn(h), rn(kh), rn(kh), rn(h)
+    if similar:
+        q = 0.3 * q
+        k, v = (t[:, :, :1] + 0.1 * t for t in (k, v))
+    q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    o32, lse = swa_forward_ref(q.float(), k.float(), v.float(), window,
+                               prefix)
+    return q, k, v, o32, lse, dout, o32.bfloat16()
+
+
+@pytest.mark.parametrize("h,kh,s,d,window,prefix", [
+    (8, 1, 300, 256, 300, 256),   # PaliGemma's mask, MQA
+    (8, 1, 300, 256, 96, 100),    # the window's edge inside the prefix
+    (4, 4, 300, 64, 300, 300),    # Whisper's encoder: prefix = window = S
+    (8, 2, 320, 128, 320, 65),    # GQA, the prefix one past a 64-key tile
+])
+def test_swa_bwd_bf16_plan_with_a_prefix_meets_both_limits(h, kh, s, d,
+                                                           window, prefix):
+    """ROADMAP B.7: the tensor-core plan over the prefix mask, from the
+    forward's fp32 output as training runs it, is within GRAD_TOL and
+    GRAD_RMS_TOL of the float64 gradients, and the RMS limit rejects the
+    plan with a prefix one key short and with none."""
+    q, k, v, o32, lse, dout, _ = _prefix_case(3, 1, h, kh, s, d, window,
+                                              prefix)
+    args = (q, k, v, o32, lse, dout, window)
+    want = swa_bwd_f64(*args, prefix=prefix)
+    assert _within_grad_limits(swa_bwd_bf16_plan(*args, prefix=prefix),
+                               want)
+    for fault in (prefix - 1, 0):
+        got = swa_bwd_bf16_plan(*args, prefix=fault)
+        assert max(grad_rms_ratio(g, w) for g, w in zip(got, want)) > \
+            GRAD_RMS_TOL["bfloat16"]
+
+
+def test_d_from_the_bf16_output_fails_near_uniform_encoder_attention():
+    """Why the bf16 forward hands its fp32 output to the backward: over
+    similar frames (an encoder, prefix = window = S) D = rowsum(dO o) from
+    the bf16 o puts dQ far past chip_smoke.py's TRAIN_CONSISTENCY_TOL (3e-2
+    of the gradient's norm) from the float64 gradients, as it did on the
+    card at whisper-medium's encoder (step 0: dQ 13-999 % of its norm from
+    layer 1 on, PERF.md, PR 24), while D from the fp32 o keeps every
+    gradient within it. The plan's own rounding of dS to bf16 is what is
+    left in dQ there (under 2 % here, 2.8 % at the card's deepest
+    layer): dQ = scale sum_j dS_j k_j sums to nearly nothing over similar
+    keys."""
+    from chip_smoke import TRAIN_CONSISTENCY_TOL
+    tol = TRAIN_CONSISTENCY_TOL["bfloat16"]
+
+    def rel(g, w):
+        return float(torch.linalg.norm(g.double() - w)
+                     / torch.linalg.norm(w))
+    q, k, v, o32, lse, dout, o16 = _prefix_case(4, 1, 4, 4, 300, 64, 300,
+                                                300, similar=True)
+    want = swa_bwd_f64(q, k, v, o32, lse, dout, 300, prefix=300)
+    fp32_o = swa_bwd_bf16_plan(q, k, v, o32, lse, dout, 300, prefix=300)
+    bf16_o = swa_bwd_bf16_plan(q, k, v, o16, lse, dout, 300, prefix=300)
+    assert all(rel(g, w) <= tol for g, w in zip(fp32_o, want))
+    assert rel(bf16_o[0], want[0]) > 10 * tol
