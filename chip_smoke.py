@@ -213,10 +213,11 @@ KERNEL_DESIGN = {
                 "row over a chunk of time from registers (8 warps of 32 "
                 "steps), the chunks chained by a carry with release/acquire "
                 "flags in launch-ticket order; a fixed association",
-    "swa_bwd": "bf16 mma.sync, P and dS rounded to bf16; dQ kernel of 64 "
-               "queries a block, dK/dV kernel of 64 keys a block over a "
-               "quarter of the kv head's query heads, fp32 partials summed "
-               "in order (no atomics)",
+    "swa_bwd": "bf16 mma.sync, P and dS rounded to bf16, D from the "
+               "forward's fp32 output; dQ kernel of 64 queries a block, "
+               "dK/dV kernel of 64 keys a block over a quarter of the kv "
+               "head's query heads, fp32 partials summed in order (no "
+               "atomics); a prefix widens the tiles a block walks",
     "lru_scan_reverse": "the lru_scan kernel with time reversed (its "
                         "REVERSE template flag), writing a's gradient "
                         "da_t = lambda_t h_{t-1} in the same pass",
@@ -401,13 +402,13 @@ def _swa_case(rng, dt, dn, s, window, h, kh, d) -> None:
         if not ratio <= 1.0:
             raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
                                  f"{window}: {ratio:.3f} x the limit")
-    o, lse = swa_forward(q, k, v, window, with_lse=True)
+    _, lse, o32 = swa_forward(q, k, v, window, with_lse=True)
     want_lse = swa_forward_ref(q.float(), k.float(), v.float(), window)[1]
     close_grad("swa_lse", lse, want_lse, 2e-5)
     dout = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
-    got = swa_backward(q, k, v, o, lse, dout, window=window)
-    want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
-                            lse, dout.float(), window)
+    got = swa_backward(q, k, v, o32, lse, dout, window=window)
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
+                            dout.float(), window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         close_grad(f"swa_bwd {name} {dn} {tuple(q.shape)} {window}", g, w,
                    GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
@@ -436,8 +437,7 @@ def _swa_prefix_case(rng, dt, dn, s, window, prefix, h, kh, d) -> None:
             raise AssertionError(f"swa bfloat16 {tuple(q.shape)} window "
                                  f"{window} prefix {prefix}: {ratio:.3f} x "
                                  "the limit")
-    _, lse, o32 = swa_forward(q, k, v, window, with_lse=True, prefix=prefix,
-                              fp32_out=True)
+    _, lse, o32 = swa_forward(q, k, v, window, with_lse=True, prefix=prefix)
     dout = _randn(rng, (2, s, h, d), dt).transpose(1, 2)
     got = swa_backward(q, k, v, o32, lse, dout, window=window, prefix=prefix)
     want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
@@ -842,7 +842,8 @@ def check_prefix_shapes() -> tuple[list, list]:
     backward (from the forward's lse and fp32 output, as training runs
     it) to GRAD_TOL and GRAD_RMS_TOL against the plain backward on fp32
     copies; each limit must reject two planted faults, a prefix one key
-    short and no prefix. Each is timed beside its plain version, one
+    short and no prefix. Each is timed (the forward also as training
+    runs it, with lse and its fp32 output) beside its plain version, one
     ``scaled_dot_product_attention`` call or its backward (the prefix mask
     as a bool mask, k and v repeated to the query heads; non-causal
     without a mask for the encoder) and the bound at the bf16 rate: 4 B H
@@ -902,6 +903,9 @@ def check_prefix_shapes() -> tuple[list, list]:
             "err_over_limit": ratio, "planted_faults_over_limit": faults,
             "kernel_ms": cuda_time_ms(lambda: swa_attention(
                 q, k, v, window=s, prefix=prefix)),
+            # training's forward: lse and the fp32 output written too
+            "with_lse_ms": cuda_time_ms(lambda: swa_forward(
+                q, k, v, s, with_lse=True, prefix=prefix)),
             "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, s, prefix)),
             "library_ms": cuda_time_ms(library),
             "library_note": "scaled_dot_product_attention, non-causal"
@@ -911,8 +915,7 @@ def check_prefix_shapes() -> tuple[list, list]:
             "bound_ms": bound, "bound_by": by,
             "seconds": time.perf_counter() - t0})
         t0 = time.perf_counter()
-        _, lse, o32 = swa_forward(q, k, v, s, with_lse=True, prefix=prefix,
-                                  fp32_out=True)
+        _, lse, o32 = swa_forward(q, k, v, s, with_lse=True, prefix=prefix)
         dout = _randn_on_card((b, s, h, d), 70 + n).bfloat16().transpose(1, 2)
         qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
         got = swa_backward(q, k, v, o32, lse, dout, window=s, prefix=prefix)
@@ -2597,7 +2600,8 @@ def train_config():
 def check_train_main_shapes() -> dict:
     """The two backward kernels at the training shapes: swa_bwd on q
     (2, 16, 4,096, 256) and k, v (2, 1, 4,096, 256) bf16 views, window
-    2,048, from the forward kernel's o and lse; lru_scan forward and its
+    2,048, from the forward kernel's lse and fp32 o, as training runs
+    it; lru_scan forward and its
     reverse launch with da (the fused adjoint) on a, b and the states'
     gradient (2, 4,096, 4,096) fp32, the scans also bit for bit against
     their emulation and a second launch. Each against its plain version
@@ -2622,9 +2626,9 @@ def check_train_main_shapes() -> dict:
     k = _randn_on_card((b, s, kh, d), 12).bfloat16().transpose(1, 2)
     v = _randn_on_card((b, s, kh, d), 13).bfloat16().transpose(1, 2)
     dout = _randn_on_card((b, s, h, d), 14).bfloat16().transpose(1, 2)
-    o, lse = swa_forward(q, k, v, win, with_lse=True)
+    _, lse, o = swa_forward(q, k, v, win, with_lse=True)
     got = swa_backward(q, k, v, o, lse, dout, window=win)
-    want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(), lse,
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o, lse,
                             dout.float(), win)
     errs = {n: close_grad(f"swa_bwd {n}", g, w, GRAD_TOL["bfloat16"],
                           GRAD_RMS_TOL["bfloat16"])
@@ -2636,7 +2640,7 @@ def check_train_main_shapes() -> dict:
     del got
     # the RMS limit must see a mask fault: the plain version with a window
     # one key short is past it in some gradient
-    short = swa_backward_ref(q.float(), k.float(), v.float(), o.float(), lse,
+    short = swa_backward_ref(q.float(), k.float(), v.float(), o, lse,
                              dout.float(), win - 1)
     short_rms = {n: grad_rms_ratio(g, w)
                  for n, g, w in zip(("dq", "dk", "dv"), short, want)}
@@ -2646,8 +2650,9 @@ def check_train_main_shapes() -> dict:
     del want, short
     torch.cuda.empty_cache()
     visible = sum(min(i + 1, win) for i in range(s))
-    # read q, k, v, o, dO and lse once; write dq, dk, dv
-    nbytes = 2.0 * (3 * b * h * s * d + 2 * b * kh * s * d) + 4.0 * b * h * s \
+    # read q, k, v, dO, the fp32 o and lse once; write dq, dk, dv
+    nbytes = 2.0 * (2 * b * h * s * d + 2 * b * kh * s * d) \
+        + 4.0 * (b * h * s * d + b * h * s) \
         + 2.0 * (b * h * s * d + 2 * b * kh * s * d)
     # five band products of 2 D flops per (query, visible key) pair
     flops = 10.0 * b * h * d * visible
@@ -2953,10 +2958,13 @@ def phase_train_modalities(counters) -> tuple:
     bytes of each step (``launch/dryrun.py`` on the meta device), on a
     line of their own; then for each model the step-0 gradient (every
     parameter's finite and not all zero) and MODAL_TRAIN_STEPS AdamW
-    steps on SyntheticLM batches, whose loss must fall. Every attention
+    steps on SyntheticLM batches, whose loss must fall; tokens/s counts
+    text tokens (PaliGemma's patches go to positions/s). Every attention
     layer's backward is swa_bwd, PaliGemma's with prefix 256 and
-    Whisper's encoder's with prefix = S: the launches are exact, counted
-    with the prefix launches beside them (``BWD_PREFIX_LAUNCHES``). Then
+    Whisper's encoder's with prefix = S, and its forward is swa twice a
+    backward (once more in remat's recomputation): the launches are
+    exact, counted with the prefix launches beside them
+    (``BWD_PREFIX_LAUNCHES``). Then
     one more loss and backward under ``torch.profiler`` (not counted):
     the device's busy seconds and idle share, and the kernels by device
     time. Returns (the launch counts of the phase, the records)."""
@@ -2966,6 +2974,7 @@ def phase_train_modalities(counters) -> tuple:
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.launch import dryrun
     from repro_torch.launch.profile_serve import busy_us, kernel_spans
+    from repro_torch.models.io import text_len
     from repro_torch.models.model import build_model
     from repro_torch.train.loop import make_train_step, value_and_grad
     from repro_torch.train.optim import adamw_init, master_params
@@ -3054,8 +3063,9 @@ def phase_train_modalities(counters) -> tuple:
                "loss_chunk": cfg.loss_chunk, "grad0_s": grad0_s,
                "loss0": float(loss0), "losses": losses, "step_s": step_s,
                "median_step_s_after_first": steady,
-               "tokens_per_step": b * seq,
-               "tokens_per_s": b * seq / steady,
+               "tokens_per_step": b * text_len(cfg, seq),
+               "tokens_per_s": b * text_len(cfg, seq) / steady,
+               "positions_per_s": b * seq / steady,
                "frames_per_s": b * cfg.encoder_seq / steady,
                "max_memory_allocated": peak,
                "dryrun_resident_bytes": predicted[arch],
@@ -3067,13 +3077,15 @@ def phase_train_modalities(counters) -> tuple:
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{arch}: the loss did not fall: {losses}")
         attn_layers = cfg.num_layers + cfg.encoder_layers
-        if launches["swa_bwd"] != backwards * attn_layers or \
+        # remat="full": each backward recomputes every layer's forward
+        if launches["swa"] != 2 * backwards * attn_layers or \
+                launches["swa_bwd"] != backwards * attn_layers or \
                 prefix_launches != backwards * prefix_layers or \
-                launches["swa"] < launches["swa_bwd"] or \
                 any(v for k, v in launches.items()
                     if k not in ("swa", "swa_bwd")):
             raise AssertionError(f"{arch}: training launched {launches}, "
                                  f"{prefix_launches} with a prefix; want "
+                                 f"{2 * backwards * attn_layers} swa, "
                                  f"{backwards * attn_layers} swa_bwd, "
                                  f"{backwards * prefix_layers} of them "
                                  "with a prefix")
@@ -3145,7 +3157,7 @@ def _sync_free_checks() -> tuple:
     q = rnd(1, 4, 128, 64, dtype=torch.bfloat16)
     kv = rnd(1, 2, 128, 64, dtype=torch.bfloat16)
     la, lb, h0 = rnd(2, 64, 96), rnd(2, 64, 96), rnd(2, 96)
-    o, lse = swa_ops.swa_forward(q, kv, kv, 32, with_lse=True)
+    _, lse, o32 = swa_ops.swa_forward(q, kv, kv, 32, with_lse=True)
     calls += [
         ("gram", lambda: gram_ops.gram(x)),
         ("normal_matvec", lambda: nm_ops.normal_matvec(x, w)),
@@ -3153,7 +3165,7 @@ def _sync_free_checks() -> tuple:
         ("rf_map_apply", lambda: rf_ops.rf_map_apply(x, wr, br)),
         ("swa", lambda: swa_ops.swa_attention(q, kv, kv, window=32)),
         ("swa_with_lse", lambda: swa_ops.swa_forward(q, kv, kv, 32, True)),
-        ("swa_bwd", lambda: swa_ops.swa_backward(q, kv, kv, o, lse, q,
+        ("swa_bwd", lambda: swa_ops.swa_backward(q, kv, kv, o32, lse, q,
                                                  window=32)),
         ("lru_scan", lambda: lru_ops.lru_scan(la, lb, h0)),
         ("lru_scan_reverse", lambda: lru_ops.lru_scan_reverse(la, lb, h0)),

@@ -13,11 +13,14 @@
 //   dK_j  = scale sum_i dS_ij q_i      (over every query head of k's head)
 //   dV_j  = sum_i P_ij dO_i            (likewise)
 // H a multiple of K (GQA: head h reads kv head h / (H / K)). fp32 or bf16
-// in and out (q, k, v, dO and the three gradients of one type; o of that
-// type or fp32: training's bf16 forward hands over its output before
-// rounding, so D reads what the CPU's fp32 plain version reads), lse and
-// D fp32. Nothing is added atomically: every sum runs in a fixed order, so
-// the result repeats bit for bit.
+// in and out (q, k, v, dO and the three gradients of one type); o, lse and
+// D fp32: the bf16 forward hands over its output before rounding, so D
+// reads what the CPU's fp32 plain version reads (from a bf16 o, dQ at
+// whisper-medium's encoder came out 13-999 % of its norm off on an NVIDIA
+// H100, as attention over similar frames is near uniform and dP - D
+// nearly cancels). Nothing
+// is added atomically: every sum runs in a fixed order, so the result
+// repeats bit for bit.
 //
 // The prefix (PaliGemma's 256 image patches; Whisper's encoder at prefix
 // = window = S) changes which tiles a block walks, not the work per tile:
@@ -153,11 +156,10 @@ __device__ __forceinline__ void load_t(float* dst, const T* src, int64_t ld,
   }
 }
 
-// D_row = sum_d dO_row,d o_row,d: one warp per row of (B * H * S); o of
-// dO's type, or fp32 (bf16 training's unrounded output)
-template <typename TO, typename T>
+// D_row = sum_d dO_row,d o_row,d: one warp per row of (B * H * S)
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    swa_bwd_dot(const TO* __restrict__ o, const T* __restrict__ dout,
+    swa_bwd_dot(const float* __restrict__ o, const T* __restrict__ dout,
                 float* __restrict__ dvec, int64_t heads, int64_t s, int d,
                 int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t g_sb,
                 int64_t g_sh, int64_t g_ss, int64_t rows) {
@@ -168,10 +170,10 @@ __global__ void __launch_bounds__(THREADS)
   const int64_t bh = row / s;
   const int64_t bi = bh / heads;
   const int64_t hi = bh % heads;
-  const TO* op = o + bi * o_sb + hi * o_sh + i * o_ss;
+  const float* op = o + bi * o_sb + hi * o_sh + i * o_ss;
   const T* gp = dout + bi * g_sb + hi * g_sh + i * g_ss;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(to_f32(op[c]), to_f32(gp[c]), acc);
+  for (int c = lane; c < d; c += 32) acc = fmaf(op[c], to_f32(gp[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -1015,10 +1017,10 @@ int launch_simt(const float* q, const float* k, const float* v,
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = batch * a.heads * a.s;
-  swa_bwd_dot<float, float><<<(unsigned)ceil_div(rows, THREADS / 32),
-                              THREADS, 0, stream>>>(
-      o, dout, dvec, a.heads, a.s, D, st[9], st[10], st[11], a.dout.b,
-      a.dout.h, a.dout.s, rows);
+  swa_bwd_dot<float><<<(unsigned)ceil_div(rows, THREADS / 32), THREADS, 0,
+                       stream>>>(o, dout, dvec, a.heads, a.s, D, st[9],
+                                 st[10], st[11], a.dout.b, a.dout.h,
+                                 a.dout.s, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((unsigned)ceil_div(a.s, BQ), (unsigned)(batch * a.heads), 1);
@@ -1032,12 +1034,11 @@ int launch_simt(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-// bf16: D (from a bf16 or an fp32 o), dQ, the dK/dV partials of each
-// split, their sum
+// bf16: D, dQ, the dK/dV partials of each split, their sum
 template <int D>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v, const void* o,
-              bool o_fp32, const bf16* dout, const float* lse, float* dvec,
-              bf16* dq, bf16* dk, bf16* dv, float* part, int64_t batch,
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* o,
+              const bf16* dout, const float* lse, float* dvec, bf16* dq,
+              bf16* dk, bf16* dv, float* part, int64_t batch,
               int64_t kv_heads, int64_t splits, const int64_t* st, Args a,
               cudaStream_t stream) {
   constexpr size_t q_bytes = dq_tc_bytes<D>();
@@ -1051,15 +1052,10 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const void* o,
                              (int)kv_bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = batch * a.heads * a.s;
-  const unsigned dot_blocks = (unsigned)ceil_div(rows, THREADS / 32);
-  if (o_fp32)
-    swa_bwd_dot<float, bf16><<<dot_blocks, THREADS, 0, stream>>>(
-        static_cast<const float*>(o), dout, dvec, a.heads, a.s, D, st[9],
-        st[10], st[11], a.dout.b, a.dout.h, a.dout.s, rows);
-  else
-    swa_bwd_dot<bf16, bf16><<<dot_blocks, THREADS, 0, stream>>>(
-        static_cast<const bf16*>(o), dout, dvec, a.heads, a.s, D, st[9],
-        st[10], st[11], a.dout.b, a.dout.h, a.dout.s, rows);
+  swa_bwd_dot<bf16><<<(unsigned)ceil_div(rows, THREADS / 32), THREADS, 0,
+                      stream>>>(o, dout, dvec, a.heads, a.s, D, st[9],
+                                st[10], st[11], a.dout.b, a.dout.h, a.dout.s,
+                                rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = ceil_div(a.s, TB);
@@ -1084,21 +1080,21 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const void* o,
 
 template <int D>
 int launch(int route, const void* q, const void* k, const void* v,
-           const void* o, bool o_fp32, const void* dout, const float* lse,
-           float* dvec, void* dq, void* dk, void* dv, void* part,
-           int64_t batch, int64_t kv_heads, int64_t splits,
-           const int64_t* st, Args a, cudaStream_t stream) {
+           const float* o, const void* dout, const float* lse, float* dvec,
+           void* dq, void* dk, void* dv, void* part, int64_t batch,
+           int64_t kv_heads, int64_t splits, const int64_t* st, Args a,
+           cudaStream_t stream) {
   if (route == 0)
     return launch_simt<D>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(v), o,
         static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dq),
         static_cast<float*>(dk), static_cast<float*>(dv), batch, kv_heads,
         st, a, stream);
   return launch_tc<D>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), o, o_fp32,
-      static_cast<const bf16*>(dout), lse, dvec, static_cast<bf16*>(dq),
+      static_cast<const bf16*>(v), o, static_cast<const bf16*>(dout), lse,
+      dvec, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       static_cast<float*>(part), batch, kv_heads, splits, st, a, stream);
 }
@@ -1109,9 +1105,9 @@ int launch(int route, const void* q, const void* k, const void* v,
 // CUDA-core kernels (fp32). swa_bwd_launch dispatches on it.
 extern "C" int swa_bwd_route(int dtype) { return dtype == 1 ? 1 : 0; }
 
-// dtype of q, k, v, dout, dq, dk, dv: 0 = float32, 1 = bfloat16; o_dtype
-// o's: dtype, or 0 (fp32) with bf16 (the forward's unrounded output).
-// head_dim one of 32, 64, 128, 256, contiguous in every tensor. strides:
+// dtype of q, k, v, dout, dq, dk, dv: 0 = float32, 1 = bfloat16; o is
+// fp32 (the forward's output before rounding). head_dim one of 32, 64,
+// 128, 256, contiguous in every tensor. strides:
 // 24 element strides, (batch, head, position) of q, k, v, o, dout, dq, dk,
 // dv in that order. lse: fp32 contiguous (B, H, S) from the forward;
 // dvec: fp32 scratch of B * H * S. bf16 only: q, k, v, dout, dk, dv
@@ -1122,15 +1118,14 @@ extern "C" int swa_bwd_route(int dtype) { return dtype == 1 ? 1 : 0; }
 // 65,535 and ceil(S / 64) <= 65,535 (the wrapper checks). window >= 1;
 // prefix in [0, S]: key j visible to query i when (j <= i or j, i <
 // prefix) and j > i - window. Returns a cudaError_t.
-extern "C" int swa_bwd_launch(int dtype, int o_dtype, int head_dim,
-                              const void* q, const void* k, const void* v,
-                              const void* o, const void* dout,
-                              const void* lse, void* dvec, void* dq,
-                              void* dk, void* dv, void* part, int64_t batch,
-                              int64_t heads, int64_t kv_heads, int64_t s,
-                              int64_t splits, const int64_t* strides,
-                              int64_t window, int64_t prefix, float scale,
-                              void* stream) {
+extern "C" int swa_bwd_launch(int dtype, int head_dim, const void* q,
+                              const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* dvec,
+                              void* dq, void* dk, void* dv, void* part,
+                              int64_t batch, int64_t heads, int64_t kv_heads,
+                              int64_t s, int64_t splits,
+                              const int64_t* strides, int64_t window,
+                              int64_t prefix, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* x = strides;
   Args a;
@@ -1147,27 +1142,25 @@ extern "C" int swa_bwd_launch(int dtype, int o_dtype, int head_dim,
   a.dq = {x[15], x[16], x[17]};
   a.dk = {x[18], x[19], x[20]};
   a.dv = {x[21], x[22], x[23]};
+  const float* of = static_cast<const float*>(o);
   const float* l = static_cast<const float*>(lse);
   float* dvp = static_cast<float*>(dvec);
   const int route = swa_bwd_route(dtype);
-  const bool o_fp32 = o_dtype != dtype;
-  if (o_fp32 && (route == 0 || o_dtype != 0))
-    return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 32:
-      return launch<32>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+      return launch<32>(route, q, k, v, of, dout, l, dvp, dq, dk,
                         dv, part, batch, kv_heads, splits, strides, a,
                         st);
     case 64:
-      return launch<64>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+      return launch<64>(route, q, k, v, of, dout, l, dvp, dq, dk,
                         dv, part, batch, kv_heads, splits, strides, a,
                         st);
     case 128:
-      return launch<128>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+      return launch<128>(route, q, k, v, of, dout, l, dvp, dq, dk,
                          dv, part, batch, kv_heads, splits, strides, a,
                          st);
     case 256:
-      return launch<256>(route, q, k, v, o, o_fp32, dout, l, dvp, dq, dk,
+      return launch<256>(route, q, k, v, of, dout, l, dvp, dq, dk,
                          dv, part, batch, kv_heads, splits, strides, a,
                          st);
     default:

@@ -53,13 +53,13 @@ SIGNATURES = {
     "swa": ("swa_launch",
             [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
              ctypes.POINTER(_I64), _I64, _I64, ctypes.c_float, _C, _C, _C]),
-    # (dtype, o's dtype, head_dim, q, k, v, o, dout, lse, dvec, dq, dk, dv,
-    # dK/dV partials or null, B, H, K, S, splits, 24 strides, window,
-    # prefix, scale, stream)
+    # (dtype, head_dim, q, k, v, fp32 o, dout, lse, dvec, dq, dk, dv, dK/dV
+    # partials or null, B, H, K, S, splits, 24 strides, window, prefix,
+    # scale, stream)
     "swa_bwd": ("swa_bwd_launch",
-                [_INT, _INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
-                 _C, _I64, _I64, _I64, _I64, _I64, ctypes.POINTER(_I64),
-                 _I64, _I64, ctypes.c_float, _C]),
+                [_INT, _INT, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
+                 _I64, _I64, _I64, _I64, _I64, ctypes.POINTER(_I64), _I64,
+                 _I64, ctypes.c_float, _C]),
     # (dtype, reverse, a, b, h0, out, h or null, h_init or null, da or
     # null, workspace, B, S, W, stream)
     "lru_scan": ("lru_scan_launch",

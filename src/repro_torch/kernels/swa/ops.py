@@ -84,81 +84,66 @@ def _check_cuda(what: str, *ts: torch.Tensor) -> None:
 
 
 def swa_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                window: int, with_lse: bool = False, prefix: int = 0,
-                fp32_out: bool = False):
-    """The forward without autograd: (out, lse or None), operands as
-    :func:`swa_attention`'s. With ``with_lse`` it also returns each row's
-    log-sum-exp of its scaled, masked scores, fp32 (B, H, S), which
-    :func:`swa_backward` takes. ``fp32_out`` (with ``with_lse``) adds a
-    third tensor, the output before it is rounded to q's type, fp32
-    contiguous (the output itself when that is fp32): the ``o`` from
-    which :func:`swa_backward` reads D = rowsum(dO o) unrounded."""
+                window: int, with_lse: bool = False, prefix: int = 0):
+    """The forward without autograd: (out, lse, o32), operands as
+    :func:`swa_attention`'s. Without ``with_lse`` lse and o32 are None.
+    With it, lse is each row's log-sum-exp of its scaled, masked scores,
+    fp32 (B, H, S), and o32 the output before it is rounded to q's type,
+    fp32 contiguous (the output itself when that is fp32): the two
+    tensors :func:`swa_backward` takes besides the inputs."""
     _check(q, k, v, window, prefix)
-    if fp32_out and not with_lse:
-        raise ValueError("swa: fp32_out comes with with_lse")
+    f32 = q.dtype == torch.float32
     if device.on_meta("swa", q, k, v):
-        b, h, s, _ = q.shape
-        lse = torch.empty((b, h, s), dtype=torch.float32, device="meta") \
-            if with_lse else None
         out = torch.empty_like(q)
-        return (out, lse, torch.empty_like(out, dtype=torch.float32)) \
-            if fp32_out else (out, lse)
+        if not with_lse:
+            return out, None, None
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="meta")
+        return out, lse, out if f32 else torch.empty_like(
+            out, dtype=torch.float32)
     if device.on_cpu("swa", q, k, v):
-        if fp32_out:
-            out32, lse = swa_forward_ref(q.float(), k.float(), v.float(),
-                                         window, prefix)
-            return out32.to(q.dtype), lse, out32
-        if with_lse:
-            return swa_forward_ref(q, k, v, window, prefix)
-        return swa_ref(q, k, v, window, prefix), None
+        if not with_lse:
+            return swa_ref(q, k, v, window, prefix), None, None
+        out32, lse = swa_forward_ref(q.float(), k.float(), v.float(),
+                                     window, prefix)
+        return out32.to(q.dtype), lse, out32
     _check_cuda("swa", q, k, v)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and not all(_tiles_align(t) for t in (q, k, v)):
+    if not f32 and not all(_tiles_align(t) for t in (q, k, v)):
         raise ValueError("swa: bf16 on CUDA takes 16-byte aligned q, k, v "
                          "whose batch, head and position strides are "
                          "multiples of 8 elements (16-byte tile copies)")
     out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
-        if fp32_out and bf16 else None
+        if with_lse and not f32 else None
     out, lse = swa_cuda(q, k, v, window, with_lse, prefix, out32)
     LAUNCHES.add()
-    if fp32_out:
-        return out, lse, out if out32 is None else out32
-    return out, lse
+    if not with_lse:
+        return out, None, None
+    return out, lse, out if f32 else out32
 
 
 class SwaFunction(torch.autograd.Function):
     """Sliding-window attention with its gradient: the forward kernel,
     writing lse and the output before rounding, then
     :func:`swa_backward`, which reads D = rowsum(dO o) from that fp32
-    output. A bf16 o put the reduced whisper encoder's q and k gradients
-    7 % of their norm from fp32 on the CPU, where attention over similar
-    frames is near uniform and dP - D nearly cancels."""
+    output: from the bf16 o, dQ at whisper-medium's encoder came out 13 to
+    999 % of its norm from the fp32 gradient on an NVIDIA H100, where
+    attention over similar frames is near uniform and dP - D nearly
+    cancels. On the CPU both plain versions compute in fp32 and round
+    once to the input type."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, prefix=0):
-        ctx.dtype = q.dtype
-        ctx.cpu = not device.on_meta("swa", q, k, v) and \
-            device.on_cpu("swa", q, k, v)
-        if ctx.cpu:
-            # the plain versions compute in fp32 whatever the input type:
-            # run them on fp32 copies and round the output (and, in the
-            # backward, each gradient) to the input type once
-            q, k, v = q.float(), k.float(), v.float()
-        out, lse, out32 = swa_forward(q, k, v, window, with_lse=True,
-                                      prefix=prefix, fp32_out=True)
-        ctx.save_for_backward(q, k, v, out32, lse)
+        out, lse, o32 = swa_forward(q, k, v, window, with_lse=True,
+                                    prefix=prefix)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.window = window
         ctx.prefix = prefix
-        return out.to(ctx.dtype)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        if ctx.cpu:
-            dout = dout.float()
-        grads = swa_backward(q, k, v, out, lse, dout, window=ctx.window,
-                             prefix=ctx.prefix)
-        return (*(g.to(ctx.dtype) for g in grads), None, None)
+        q, k, v, o32, lse = ctx.saved_tensors
+        return (*swa_backward(q, k, v, o32, lse, dout, window=ctx.window,
+                              prefix=ctx.prefix), None, None)
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -190,10 +175,10 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o``, its fp32 (B, H, S) log-sum-exp ``lse`` and ``dout``, the
     gradient of the output (q's shape and type; any strides: one not
     contiguous in D, or in bf16 with rows not 16-byte aligned, is copied).
-    ``o`` is q's type, or fp32 with bf16 operands (the forward's output
-    before rounding, :func:`swa_forward`'s ``fp32_out``). The plain
-    version for CPU tensors, the kernels of ``csrc/swa_bwd.cu`` for CUDA
-    tensors, the prefix's mask included: fp32 on the CUDA cores, bf16 on
+    ``o`` is fp32: the forward's output before rounding,
+    :func:`swa_forward`'s o32 (the kernel reads D = rowsum(dO o) from it).
+    The plain version for CPU tensors, the kernels of ``csrc/swa_bwd.cu``
+    for CUDA tensors, the prefix's mask included: fp32 on the CUDA cores, bf16 on
     the tensor cores (P and dS rounded to bf16 as operands of their
     products), where q, k and v must keep rows 16-byte aligned as in the
     forward. Gradients come back in the input type, each laid out like
@@ -203,10 +188,10 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device.require_tensor("swa_bwd", "dout", dout, 4, contiguous=False)
     device.require_tensor("swa_bwd", "lse", lse, 3, (torch.float32,))
     if o.shape != q.shape or dout.shape != q.shape or \
-            dout.dtype != q.dtype or o.dtype not in (q.dtype, torch.float32):
+            dout.dtype != q.dtype or o.dtype != torch.float32:
         raise ValueError(f"swa_bwd: o {tuple(o.shape)} {o.dtype} and dout "
                          f"{tuple(dout.shape)} {dout.dtype} are not q's "
-                         f"{tuple(q.shape)} {q.dtype} (o may be fp32)")
+                         f"{tuple(q.shape)} {q.dtype} (o in fp32)")
     if tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"swa_bwd: lse {tuple(lse.shape)} is not (B, H, S)"
                          f" = {tuple(q.shape[:3])}")

@@ -68,9 +68,9 @@ def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                  window: int, prefix: int = 0) -> tuple:
     """dQ, dK, dV of :func:`swa_cuda` on the card, from its inputs, its
-    output ``o`` (q's type, or with bf16 the fp32 output before rounding),
-    its ``lse`` (fp32 contiguous (B, H, S)) and the output's gradient
-    ``dout`` (q's shape and type). Every tensor D-contiguous,
+    output before rounding ``o`` (fp32), its ``lse`` (fp32 contiguous
+    (B, H, S)) and the output's gradient ``dout`` (q's shape and type).
+    Every tensor D-contiguous,
     other strides free (bf16: rows 16-byte aligned). Returns the three
     gradients in the input type, each laid out like its input. In bf16
     the dK/dV partials of each split of a kv head's query heads go to an
@@ -87,11 +87,10 @@ def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.load("swa_bwd")
     with torch.cuda.device(q.device):
         err = lib.swa_bwd_launch(
-            device.dtype_code(q), device.dtype_code(o), d, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), part.data_ptr() if part is not None else None, b,
-            h, kh, s, splits, strides, window, prefix, d ** -0.5,
-            device.stream_ptr(q))
+            device.dtype_code(q), d, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr() if part is not None else None, b, h, kh, s,
+            splits, strides, window, prefix, d ** -0.5, device.stream_ptr(q))
     build.check("swa_bwd", err)
     return dq, dk, dv

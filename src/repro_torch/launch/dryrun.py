@@ -144,43 +144,46 @@ def train_record(model, cfg, shape) -> dict:
             # every state tensor read and written once, the casts written
             # and read once, each saved activation written and read once
             "bytes_per_device": 2 * (state + casts + act),
-            # a floor: transients (a layer's recomputation, the loss
-            # chunk's logits, AdamW's three temporaries) come on top
+            # an estimate of the peak, neither floor nor ceiling: the
+            # backward frees a layer's saved tensors and casts as that
+            # layer's gradients appear, so the step never holds all of
+            # it at once, and transients (a layer's recomputation, the
+            # loss chunk's logits, AdamW's temporaries) come on top
             "resident_bytes": state + casts + act}
 
 
-def _serve_state(model, cfg, caches, weights_bf16: int) -> dict:
+def _serve_state(model, caches) -> dict:
     cache_b = _nbytes(_cache_tensors(caches))
     as_built = _nbytes(model.parameters())
+    weights_bf16 = 2 * sum(p.numel() for p in model.parameters())
     return {"state_bytes": {"weights_bf16": weights_bf16,
                             "cache": cache_b},
-            "cache_bytes_analytic": None,
             "param_bytes_as_built": as_built,
             # the port serves from its fp32 parameters, cast per op
             "resident_bytes": as_built + cache_b}
 
 
-def prefill_record(model, cfg, shape, weights_bf16: int) -> dict:
+def prefill_record(model, cfg, shape) -> dict:
     batch = mio.batch_struct(cfg, shape)
     extras = {k: v for k, v in batch.items() if k != "tokens"}
     logits, state = model.prefill(batch["tokens"], **extras)
     if tuple(logits.shape) != (shape.global_batch, cfg.vocab_size):
         raise AssertionError(f"{cfg.name}: prefill logits "
                              f"{tuple(logits.shape)}")
-    rec = _serve_state(model, cfg, state.caches, weights_bf16)
+    rec = _serve_state(model, state.caches)
     # read every bf16 weight once, write the cache once
-    rec["bytes_per_device"] = weights_bf16 + rec["state_bytes"]["cache"]
+    rec["bytes_per_device"] = sum(rec["state_bytes"].values())
     return rec
 
 
-def decode_record(model, cfg, shape, weights_bf16: int) -> dict:
+def decode_record(model, cfg, shape) -> dict:
     state = mio.decode_state_struct(model, shape)
     logits, _ = model.decode_step(state,
                                   mio.decode_tokens_struct(cfg, shape))
     if tuple(logits.shape) != (shape.global_batch, cfg.vocab_size):
         raise AssertionError(f"{cfg.name}: decode logits "
                              f"{tuple(logits.shape)}")
-    rec = _serve_state(model, cfg, state.caches, weights_bf16)
+    rec = _serve_state(model, state.caches)
     rec["cache_bytes_analytic"] = rl.cache_bytes(cfg, shape)
     rec["bytes_per_device"] = rl.analytic_decode_bytes_per_chip(cfg, shape)
     return rec
@@ -198,14 +201,12 @@ def run_one(arch: str, shape_name: str, *, out_dir: str = OUT_DIR,
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
     built = sum(p.numel() for p in model.parameters())
-    weights_bf16 = 2 * built
-    step = {"train": train_record, "prefill": prefill_record,
-            "decode": decode_record}[shape.mode]
     if shape.mode == "train":
-        rec = step(model, cfg, shape)
+        rec = train_record(model, cfg, shape)
     else:
+        step = prefill_record if shape.mode == "prefill" else decode_record
         with torch.inference_mode():
-            rec = step(model, cfg, shape, weights_bf16)
+            rec = step(model, cfg, shape)
     seconds = time.perf_counter() - t0
     report = rl.build_report(arch, shape, cfg, rec["bytes_per_device"])
     state = sum(rec["state_bytes"].values())

@@ -864,10 +864,10 @@ def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, tol):
                 for _ in range(2))
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         dout = torch.randn(b, h, s, d, generator=g).to(cuda, dtype)
-        o, lse = swa_forward(q, k, v, window, with_lse=True)
-        got = swa_backward(q, k, v, o, lse, dout, window=window)
-        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
-                                lse, dout.float(), window)
+        _, lse, o32 = swa_forward(q, k, v, window, with_lse=True)
+        got = swa_backward(q, k, v, o32, lse, dout, window=window)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
+                                dout.float(), window)
         for gg, w, t in zip(got, want, (q, k, v)):
             assert gg.dtype == dtype and gg.stride() == t.stride()
             torch.testing.assert_close(gg.float(), w, rtol=0,
@@ -914,10 +914,10 @@ def test_cuda_swa_backward_routes_by_dtype(cuda, head_dim):
             qd, kd, vd, gd = (t.to(dtype).transpose(1, 2)
                               for t in (q, k, v, dout))
             assert swa_bwd_route(qd) == route
-            o, lse = swa_forward(qd, kd, vd, 100, with_lse=True)
-            got = swa_backward(qd, kd, vd, o, lse, gd, window=100)
+            _, lse, o32 = swa_forward(qd, kd, vd, 100, with_lse=True)
+            got = swa_backward(qd, kd, vd, o32, lse, gd, window=100)
             want = swa_backward_ref(qd.float(), kd.float(), vd.float(),
-                                    o.float(), lse, gd.float(), 100)
+                                    o32, lse, gd.float(), 100)
             dn = str(dtype).removeprefix("torch.")
             for gg, w in zip(got, want):
                 assert gg.dtype == dtype
@@ -938,10 +938,10 @@ def test_cuda_swa_backward_repeats_bit_for_bit(cuda):
         cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
     k, v = (torch.randn(2, 1000, 1, 256, generator=g).to(
         cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
-    o, lse = swa_ops.swa_forward(q, k, v, 300, with_lse=True)
+    _, lse, o32 = swa_ops.swa_forward(q, k, v, 300, with_lse=True)
     swa_ops.BWD_LAUNCHES.reset()
-    first = swa_ops.swa_backward(q, k, v, o, lse, dout, window=300)
-    second = swa_ops.swa_backward(q, k, v, o, lse, dout, window=300)
+    first = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=300)
+    second = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=300)
     assert swa_ops.BWD_LAUNCHES.value == 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -1001,10 +1001,10 @@ def test_cuda_swa_at_window_covering_seq_is_global_attention(
             swa_attention(q, k, v, window=window).float(), want, rtol=0,
             atol=tol * float(want.abs().max()))
         dout = torch.randn(2, h, s, head_dim, generator=g).to(cuda, dtype)
-        o, lse = swa_forward(q, k, v, window, with_lse=True)
-        got = swa_backward(q, k, v, o, lse, dout, window=window)
-        want = swa_backward_ref(q.float(), k.float(), v.float(), o.float(),
-                                lse, dout.float(), window)
+        _, lse, o32 = swa_forward(q, k, v, window, with_lse=True)
+        got = swa_backward(q, k, v, o32, lse, dout, window=window)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
+                                dout.float(), window)
         for gg, w in zip(got, want):
             torch.testing.assert_close(gg.float(), w, rtol=0,
                                        atol=tol * float(w.abs().max()))
@@ -1125,7 +1125,7 @@ def test_cuda_swa_backward_with_a_prefix_matches_its_plain_version(
     64, 65, 100, 256 and S at S = 300 (MQA) and 320 (GQA), windows S and
     96, against swa_backward_ref on fp32 copies: within tol of max |grad|
     and, in bf16, GRAD_RMS_TOL of RMS(grad), from the forward's fp32
-    output (what training passes) and, in bf16, from its bf16 output."""
+    output (what training passes)."""
     from chip_smoke import GRAD_RMS_TOL, grad_rms_ratio
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa.ref import swa_backward_ref
@@ -1133,25 +1133,21 @@ def test_cuda_swa_backward_with_a_prefix_matches_its_plain_version(
     n = 0
     for q, k, v, dout, window, prefix in _prefix_backward_cases(
             cuda, dtype, head_dim, head_dim):
-        o, lse, o32 = swa_ops.swa_forward(q, k, v, window, with_lse=True,
-                                          prefix=prefix, fp32_out=True)
-        outs = (o32, o) if dtype == torch.bfloat16 else (o,)
-        for out in outs:
-            got = swa_ops.swa_backward(q, k, v, out, lse, dout,
-                                       window=window, prefix=prefix)
-            want = swa_backward_ref(q.float(), k.float(), v.float(),
-                                    out.float(), lse, dout.float(), window,
-                                    prefix)
-            n += 1
-            for name, gg, w, t in zip(("dq", "dk", "dv"), got, want,
-                                      (q, k, v)):
-                what = (name, window, prefix, out.dtype)
-                assert gg.dtype == dtype and gg.stride() == t.stride()
-                err = float((gg.float() - w).abs().max())
-                assert err <= tol * float(w.abs().max()), what
-                if dtype == torch.bfloat16:
-                    assert grad_rms_ratio(gg, w) <= \
-                        GRAD_RMS_TOL["bfloat16"], what
+        _, lse, o32 = swa_ops.swa_forward(q, k, v, window, with_lse=True,
+                                          prefix=prefix)
+        got = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=window,
+                                   prefix=prefix)
+        want = swa_backward_ref(q.float(), k.float(), v.float(), o32, lse,
+                                dout.float(), window, prefix)
+        n += 1
+        for name, gg, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+            what = (name, window, prefix)
+            assert gg.dtype == dtype and gg.stride() == t.stride()
+            err = float((gg.float() - w).abs().max())
+            assert err <= tol * float(w.abs().max()), what
+            if dtype == torch.bfloat16:
+                assert grad_rms_ratio(gg, w) <= GRAD_RMS_TOL["bfloat16"], \
+                    what
     torch.cuda.synchronize()
     assert swa_ops.BWD_PREFIX_LAUNCHES.value == n
 
@@ -1167,8 +1163,8 @@ def test_cuda_swa_backward_with_a_prefix_repeats_bit_for_bit(cuda):
         cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
     k, v = (torch.randn(2, 700, 1, 256, generator=g).to(
         cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
-    o, lse, o32 = swa_ops.swa_forward(q, k, v, 700, with_lse=True,
-                                      prefix=256, fp32_out=True)
+    _, lse, o32 = swa_ops.swa_forward(q, k, v, 700, with_lse=True,
+                                      prefix=256)
     first = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=700,
                                  prefix=256)
     second = swa_ops.swa_backward(q, k, v, o32, lse, dout, window=700,

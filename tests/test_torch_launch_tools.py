@@ -180,8 +180,8 @@ def _check_record(rec, arch, shape):
     else:
         assert state["weights_bf16"] == 2 * n and state["cache"] > 0
     if rec["mode"] == "decode":
-        assert state["cache"] == rec["cache_bytes_analytic"] or \
-            rec["cache_bytes_analytic"] > 0
+        # the cache the step reads, as built, is the roofline's cache_bytes
+        assert state["cache"] == rec["cache_bytes_analytic"]
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -284,7 +284,7 @@ def test_meta_routes_give_the_plain_versions_shapes_and_dtypes():
     for dev in ("cpu", "meta"):
         t = {k: v.to(dev) for k, v in cpu.items()}
         q, k, a, h0 = t["q"], t["k"], t["a"], t["h0"]
-        fwd = swa_forward(q, k, k, 16, True, 8, fp32_out=True)
+        fwd = swa_forward(q, k, k, 16, True, 8)
         bwd = swa_backward(q, k, k, fwd[2], fwd[1], q, window=16, prefix=8)
         scans = (lru_scan(a, a, h0),) + lru_scan_reverse(a, a, h0, h=a,
                                                          h_init=h0)

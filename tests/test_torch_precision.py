@@ -408,9 +408,9 @@ def test_d_from_the_bf16_output_fails_near_uniform_encoder_attention():
     """Why the bf16 forward hands its fp32 output to the backward: over
     similar frames (an encoder, prefix = window = S) D = rowsum(dO o) from
     the bf16 o puts dQ far past chip_smoke.py's TRAIN_CONSISTENCY_TOL (3e-2
-    of the gradient's norm) from the float64 gradients, as it did on the
-    card at whisper-medium's encoder (step 0: dQ 13-999 % of its norm from
-    layer 1 on, PERF.md, PR 24), while D from the fp32 o keeps every
+    of the gradient's norm) from the float64 gradients, as it did on an
+    NVIDIA H100 at whisper-medium's encoder (step 0: dQ 13-999 % of its
+    norm from layer 1 on, PERF.md §6), while D from the fp32 o keeps every
     gradient within it. The plan's own rounding of dS to bf16 is what is
     left in dQ there (under 2 % here, 2.8 % at the card's deepest
     layer): dQ = scale sum_j dS_j k_j sums to nearly nothing over similar
