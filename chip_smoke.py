@@ -182,6 +182,9 @@ TOL = {"gram": {"float32": 2e-5, "bfloat16": 2e-2},
 # scale 10 % high.
 SWA_RTOL = 2.0 ** -7
 SWA_ATOL_RMS = 1e-2
+# launches a swa time and its library yardstick's are the mean of: at a
+# tenth of a millisecond three launches are decided by noise
+SWA_REPS = 20
 
 KERNEL_META = {
     "gram": ("src/repro_torch/csrc/gram.cu",
@@ -208,7 +211,14 @@ KERNEL_DESIGN = {
     "normal_matvec": "3xTF32 wgmma",
     "rf_map": "3xTF32 wgmma, persistent 128x160 tiles columns fastest, "
               "cos epilogue staged through shared memory",
-    "swa": "mma.sync bf16",
+    "swa": "bf16: wgmma on TMA-fed 128-byte swizzled tiles, a producer "
+           "warpgroup (setmaxnreg 40) and two consumer warpgroups of 64 "
+           "query rows (232) ping-ponging on named barriers; S = Q K^T "
+           "from shared memory, O += P V with P from registers in fp16 "
+           "against v taken to fp16 after a power-of-two scale per "
+           "(batch, kv head) (two small kernels first); 128-query blocks, "
+           "128-key steps (64 at D = 256), longest first. fp32: CUDA "
+           "cores",
     "lru_scan": "fp32 CUDA cores; a block scans 32 channels of one batch "
                 "row over a chunk of time from registers (8 warps of 32 "
                 "steps), the chunks chained by a carry with release/acquire "
@@ -226,7 +236,7 @@ KERNEL_DESIGN = {
 KERNEL_EXTRAS = ("bound_ms_fp32_cuda_cores", "library_note",
                  "copy_ceiling_ms", "train_shape", "long_prompt",
                  "causal_shapes", "prefix_shapes", "prefix_launches",
-                 "unfused_ms",
+                 "unfused_ms", "device_ms",
                  "lambda_only_ms", "lambda_only_bound_ms")
 
 
@@ -414,6 +424,43 @@ def _swa_case(rng, dt, dn, s, window, h, kh, d) -> None:
                    GRAD_TOL[dn], GRAD_RMS_TOL.get(dn))
 
 
+def _swa_edge_case(rng, dt, dn, b, h, kh, s, d, window, prefix) -> None:
+    """The forward kernel at one of its tile edges
+    (``forward_check.edge_cases``: S around the 128-query and -key tiles,
+    windows of 1 to S, prefixes of 1 to S, GQA groups of 1 to 16) on
+    (B, S, H, D) views: the output against its plain version (bf16 also to
+    the main shape's limit, as are training's output and fp32 output from
+    the with-lse launch, which splits P), lse, and two launches the same
+    bits."""
+    import torch
+    from repro_torch.kernels.swa.ops import swa_attention, swa_forward
+    from repro_torch.kernels.swa.ref import swa_forward_ref, swa_ref
+    q = _randn(rng, (b, s, h, d), dt).transpose(1, 2)
+    k, v = (_randn(rng, (b, s, kh, d), dt).transpose(1, 2)
+            for _ in range(2))
+    got = swa_attention(q, k, v, window=window, prefix=prefix)
+    what = f"swa {dn} {tuple(q.shape)} kv {kh} window {window} prefix " \
+        f"{prefix}"
+    close("swa", got, swa_ref(q, k, v, window, prefix), dn,
+          absolute_atol=True)
+    out, lse, o32 = swa_forward(q, k, v, window, with_lse=True,
+                                prefix=prefix)
+    want, want_lse = swa_forward_ref(q.float(), k.float(), v.float(),
+                                     window, prefix)
+    if dt == torch.bfloat16:
+        # serving's output; training's, whose launch splits P, and its
+        # fp32 output
+        for name, t in (("out", got), ("training out", out), ("o32", o32)):
+            ratio = swa_excess(t, want)[1]
+            if not ratio <= 1.0:
+                raise AssertionError(f"{what}: {name} {ratio:.3f} x the "
+                                     "limit")
+    close_grad("swa_lse", lse, want_lse, 2e-5)
+    if not torch.equal(got, swa_attention(q, k, v, window=window,
+                                          prefix=prefix)):
+        raise AssertionError(f"{what}: two launches differ")
+
+
 def _swa_prefix_case(rng, dt, dn, s, window, prefix, h, kh, d) -> None:
     """swa with a bidirectional prefix on (2, s, h, d) queries and
     (2, s, kh, d) keys and values as (B, S, H, D) views against its plain
@@ -452,15 +499,17 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
     tests/test_lru_loss_kernels.py), plus S not a multiple of 64, MQA,
     window >= S, S = 300 on (B, S, H, D) views at every head dim (also
     with prefixes of 1, 100 and S, at window = S and 100), one query head
-    a kv head, and global attention (window >= S) at head dims 64 and 128
-    with GQA groups of 1, 4 and 7: fp32 through the CUDA-core route, bf16
-    through the tensor-core route, which is also held to the main shape's
-    limit (swa_excess)."""
+    a kv head, global attention (window >= S) at head dims 64 and 128
+    with GQA groups of 1, 4 and 7, and the bf16 kernel's tile edges
+    (``forward_check.edge_cases``, every head dim): fp32 through the
+    CUDA-core route, bf16 through the tensor-core route, which is also
+    held to the main shape's limit (swa_excess)."""
     import torch
     from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
     from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_reverse
     from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
         lru_scan_ref, lru_scan_reverse_ref
+    from repro_torch.launch.forward_check import edge_cases
     n = 0
     for s, window, kh, d in [(128, 32, 2, 32), (256, 96, 2, 32),
                              (256, 256, 2, 32), (512, 128, 2, 32),
@@ -477,6 +526,11 @@ def check_lm_test_shapes(rng, dt, dn) -> int:
             for window in (300, 100):
                 _swa_prefix_case(rng, dt, dn, 300, window, prefix, 4, 1, d)
                 n += 1
+    # the bf16 kernel's tile edges at every head dim (forward only; the
+    # backward's sweep is above and below)
+    for case in edge_cases():
+        _swa_edge_case(rng, dt, dn, *case)
+        n += 1
     # global attention (window >= S), the dense families' layers: head
     # dims 64 and 128, GQA groups of 1, 4 and 7 (yi-34b's 56 heads over 8)
     for s, window, h, kh, d in [(200, 200, 4, 4, 64), (300, 300, 8, 2, 128),
@@ -681,6 +735,7 @@ def check_lm_main_shapes() -> dict:
         lru_scan_ref
     from repro_torch.kernels.swa.ops import swa_attention
     from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.launch.forward_check import kernels_ms
     cfg = get_config(LM_ARCH)
     out = {}
 
@@ -716,10 +771,12 @@ def check_lm_main_shapes() -> dict:
         "planted_faults_over_limit": faults,
         "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
         "kernel_ms": cuda_time_ms(lambda: swa_attention(q, k, v,
-                                                        window=win)),
+                                                        window=win),
+                                  SWA_REPS),
+        "device_ms": kernels_ms(lambda: swa_attention(q, k, v, window=win)),
         "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, win)),
         "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, attn_mask=band)),
+            q, kx, vx, attn_mask=band), SWA_REPS),
         "bound_ms": bound, "bound_by": by}
     del q, k, v, kx, vx, band
     torch.cuda.empty_cache()
@@ -785,6 +842,7 @@ def check_causal_shapes() -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.swa.ops import swa_attention
     from repro_torch.kernels.swa.ref import swa_ref
+    from repro_torch.launch.forward_check import kernels_ms
     out = []
     for n, (arch, b, s) in enumerate(CAUSAL_SHAPES):
         t0 = time.perf_counter()
@@ -814,11 +872,15 @@ def check_causal_shapes() -> list:
             "max_abs_err": err, "err_over_limit": ratio,
             "scale_fault_over_limit": fault,
             "kernel_ms": cuda_time_ms(lambda: swa_attention(q, k, v,
-                                                            window=s)),
+                                                            window=s),
+                                      SWA_REPS),
+            "device_ms": kernels_ms(lambda: swa_attention(q, k, v,
+                                                          window=s)),
             "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, s)),
             "library_ms": cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                       is_causal=True)),
+                                                       is_causal=True),
+                SWA_REPS),
             "bound_ms": bound, "bound_by": by,
             "seconds": time.perf_counter() - t0})
         del q, k, v, kx, vx
@@ -856,6 +918,7 @@ def check_prefix_shapes() -> tuple[list, list]:
     from repro_torch.kernels.swa.ops import swa_attention, swa_backward, \
         swa_forward
     from repro_torch.kernels.swa.ref import swa_backward_ref, swa_ref
+    from repro_torch.launch.forward_check import kernels_ms
     out, bwd = [], []
     for n, (arch, b, s, prefix) in enumerate(PREFIX_SHAPES):
         t0 = time.perf_counter()
@@ -902,12 +965,14 @@ def check_prefix_shapes() -> tuple[list, list]:
             "dtype": "bfloat16", "max_abs_err": err,
             "err_over_limit": ratio, "planted_faults_over_limit": faults,
             "kernel_ms": cuda_time_ms(lambda: swa_attention(
+                q, k, v, window=s, prefix=prefix), SWA_REPS),
+            "device_ms": kernels_ms(lambda: swa_attention(
                 q, k, v, window=s, prefix=prefix)),
             # training's forward: lse and the fp32 output written too
             "with_lse_ms": cuda_time_ms(lambda: swa_forward(
-                q, k, v, s, with_lse=True, prefix=prefix)),
+                q, k, v, s, with_lse=True, prefix=prefix), SWA_REPS),
             "plain_ms": cuda_time_ms(lambda: swa_ref(q, k, v, s, prefix)),
-            "library_ms": cuda_time_ms(library),
+            "library_ms": cuda_time_ms(library, SWA_REPS),
             "library_note": "scaled_dot_product_attention, non-causal"
                             if prefix == s else
                             "scaled_dot_product_attention, the prefix mask "

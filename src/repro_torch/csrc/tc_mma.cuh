@@ -1,7 +1,8 @@
-// Building blocks of the port's tensor-core kernels (swa.cu,
-// normal_matvec.cu): asynchronous global-to-shared copies, ldmatrix
-// fragment loads, the warp-level bf16 mma.sync product and the splits of
-// fp32 into bf16 or TF32 parts, as thin inline PTX.
+// Building blocks of the port's Ampere-style tensor-core code (swa_bwd.cu,
+// and the 3xTF32 main loop of normal_matvec.cu and rf_map.cu):
+// asynchronous global-to-shared copies, ldmatrix fragment loads, the
+// warp-level bf16 mma.sync product and the split of fp32 into TF32 parts,
+// as thin inline PTX.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k8"), with g = lane / 4 and t = lane % 4:
@@ -84,15 +85,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Two floats as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): x to
-// about 2^-17 relative, where hi alone keeps 2^-9.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 // The 3xTF32 split: x = hi + lo exactly, hi = x with its 13 low mantissa

@@ -49,10 +49,12 @@ SIGNATURES = {
                [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float,
                 _INT, _C]),
     # (dtype, head_dim, q, k, v, o, B, H, K, S, 12 strides, window,
-    # prefix, scale, lse or null, fp32 out or null, stream)
+    # prefix, scale, fp16 v scratch or null, max |v| scratch or null, lse
+    # or null, fp32 out or null, stream)
     "swa": ("swa_launch",
             [_INT, _INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
-             ctypes.POINTER(_I64), _I64, _I64, ctypes.c_float, _C, _C, _C]),
+             ctypes.POINTER(_I64), _I64, _I64, ctypes.c_float, _C, _C, _C,
+             _C, _C]),
     # (dtype, head_dim, q, k, v, fp32 o, dout, lse, dvec, dq, dk, dv, dK/dV
     # partials or null, B, H, K, S, splits, 24 strides, window, prefix,
     # scale, stream)
@@ -96,7 +98,7 @@ def nvcc() -> str:
 def _sources(name: str) -> list[Path]:
     return [CSRC / f"{name}.cu", CSRC / "fp32_tiles.cuh",
             CSRC / "tc_mma.cuh", CSRC / "wgmma_tf32.cuh",
-            CSRC / "tf32_mainloop.cuh"]
+            CSRC / "tf32_mainloop.cuh", CSRC / "hopper_bf16.cuh"]
 
 
 def library_path(name: str) -> Path:
@@ -166,7 +168,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: launch statuses above this are tensor maps the driver could not make
+#: (``csrc/hopper_bf16.cuh`` ENCODE_MISSING: no encoder; above it, 1 + the
+#: CUresult of a refused map)
+ENCODE_MISSING = 10000
+
+
 def check(name: str, err: int) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch entry."""
+    """Raise on a non-zero status returned by a launch entry: a
+    cudaError_t, or a tensor map the driver could not make."""
+    if err >= ENCODE_MISSING:
+        raise RuntimeError(
+            f"{name} kernel launch failed: no tensor map (the driver has no "
+            "cuTensorMapEncodeTiled)" if err == ENCODE_MISSING else
+            f"{name} kernel launch failed: the driver refused a tensor map "
+            f"(CUresult {err - ENCODE_MISSING - 1})")
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -41,8 +41,9 @@ BWD_PREFIX_LAUNCHES = device.LaunchCounter()
 
 
 def _tiles_align(t: torch.Tensor) -> bool:
-    """Every row of ``t`` starts on a 16-byte boundary: the bf16 kernel
-    copies 16-byte chunks (cp.async)."""
+    """Every row of ``t`` starts on a 16-byte boundary: the bf16 kernels
+    load tiles by TMA (the forward) and 16-byte cp.async chunks (the
+    backward)."""
     return t.data_ptr() % 16 == 0 and all(
         st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
@@ -110,7 +111,10 @@ def swa_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not f32 and not all(_tiles_align(t) for t in (q, k, v)):
         raise ValueError("swa: bf16 on CUDA takes 16-byte aligned q, k, v "
                          "whose batch, head and position strides are "
-                         "multiples of 8 elements (16-byte tile copies)")
+                         "multiples of 8 elements (TMA tile loads)")
+    if not f32:
+        # the bf16 kernel's grid: (B H, query tiles of 128)
+        device.require_grid("swa", query_tiles=-(-q.shape[2] // 128))
     out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
         if with_lse and not f32 else None
     out, lse = swa_cuda(q, k, v, window, with_lse, prefix, out32)
@@ -158,12 +162,18 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous; other
     strides are free, so (B, S, H, D) tensors pass as
     ``x.transpose(1, 2)`` views; in bf16 they must keep rows 16-byte
-    aligned. fp32 runs on the CUDA cores, bf16 on the tensor cores with
-    the probabilities split into bf16 hi and lo parts for the product
-    with v. Differentiable: see the module's docstring."""
-    _check(q, k, v, window, prefix)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    aligned. fp32 runs on the CUDA cores; bf16 on Hopper's tensor cores
+    (``csrc/swa.cu``: wgmma products on tiles that TMA brings, a producer
+    and two consumer warpgroups), with the probabilities rounded once to
+    fp16 for the product with v, which is taken to fp16 after a
+    power-of-two scale per (batch, kv head): within one bf16 ulp plus 1e-2
+    of the output's RMS of the fp32 attention, bounded by the consumers'
+    softmax more than by the products. Differentiable: see the module's
+    docstring."""
+    # both routes check their operands in swa_forward (a second check
+    # here cost 27 µs of host time a call beside an H100)
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in (q, k, v)):
         return SwaFunction.apply(q, k, v, window, prefix)
     return swa_forward(q, k, v, window, prefix=prefix)[0]
 

@@ -22,19 +22,30 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     view; with ``with_lse`` each row's log-sum-exp, fp32 contiguous
     (B, H, S), else None (nothing more is written). ``out32`` (bf16 only:
     fp32 contiguous (B, H, S, D)) also receives the output before it is
-    rounded."""
+    rounded. bf16 runs on the warpgroup kernel of ``csrc/swa.cu``, which
+    rounds the probabilities once to fp16 against an fp16 copy of v scaled
+    by a power of two per (batch, kv head): that copy (B, K, S, D) and the
+    max |v| it is scaled by are scratch allocated here and written by the
+    launch, on the tensors' stream."""
     b, h, s, d = q.shape
+    kh = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    bf16 = q.dtype == torch.bfloat16
+    v16 = torch.empty((b, kh, s, d), dtype=torch.float16,
+                      device=q.device) if bf16 else None
+    vmax = torch.empty((b, kh), dtype=torch.int32, device=q.device) \
+        if bf16 else None
     strides = (ctypes.c_int64 * 12)(*(
         st for t in (q, k, v, out) for st in t.stride()[:3]))
     lib = build.load("swa")
     with torch.cuda.device(q.device):
         err = lib.swa_launch(device.dtype_code(q), d, q.data_ptr(),
                              k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                             h, k.shape[1], s, strides, window, prefix,
-                             d ** -0.5,
+                             h, kh, s, strides, window, prefix, d ** -0.5,
+                             v16.data_ptr() if v16 is not None else None,
+                             vmax.data_ptr() if vmax is not None else None,
                              lse.data_ptr() if lse is not None else None,
                              out32.data_ptr() if out32 is not None else None,
                              device.stream_ptr(q))

@@ -129,8 +129,8 @@ def test_cuda_normal_matvec_column_tiles(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
 def test_cuda_swa_routes_by_dtype(cuda, head_dim):
-    """bf16 on the tensor cores and fp32 on the CUDA cores, at S = 300 on
-    (B, S, H, D) views: bf16 within chip_smoke.py's main-shape limit
+    """bf16 on the tensor cores (wgmma) and fp32 on the CUDA cores, at S =
+    300 on (B, S, H, D) views: bf16 within chip_smoke.py's main-shape limit
     against the plain version on fp32 copies, fp32 within the JAX tests'
     2e-5 (which a bf16 rounding of the probabilities would miss)."""
     from chip_smoke import swa_excess
@@ -151,6 +151,27 @@ def test_cuda_swa_routes_by_dtype(cuda, head_dim):
         assert got.transpose(1, 2).is_contiguous()
         want = swa_ref(qb.float(), kb.float(), vb.float(), window)
         assert swa_excess(got, want)[1] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_cuda_swa_tile_edges(cuda, dtype, head_dim):
+    """The bf16 wgmma kernel at its tile edges (and the fp32 route at the
+    same shapes): S of 1, 127, 128, 129 and 300 at windows of 1, 63, 127,
+    129 and S, prefixes of 1, 127, 129 and S, GQA groups of 1, 4, 7 and
+    16, on (B, S, H, D) views. Each output within chip_smoke.py's limit
+    (bf16) or 2e-5 of max |want| (fp32) of the plain version on fp32
+    copies, lse within 2e-5 of max |lse|, and two launches the same
+    bits."""
+    from repro_torch.launch.forward_check import check_case, edge_cases
+    g = torch.Generator(cuda).manual_seed(head_dim)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+    bad = [rec for rec in (check_case(rn, dtype, *c) for c in edge_cases()
+                           if c[4] == head_dim) if not rec["ok"]]
+    assert not bad, bad[:3]
 
 
 @pytest.mark.cuda

@@ -260,8 +260,8 @@ def test_swa_bwd_launcher_declares_the_c_entry():
 
 def test_swa_launcher_declares_the_c_entry():
     """build.SIGNATURES['swa'] declares as many arguments as the extern
-    "C" swa_launch takes (its fp32 output pointer included), and the
-    wrapper passes that many."""
+    "C" swa_launch takes (the fp16 v scratch, its max |v| scratch and the
+    fp32 output pointer included), and the wrapper passes that many."""
     import inspect
     import re
     from repro_torch.kernels import build
@@ -299,3 +299,76 @@ def test_backward_check_reads_ptxas_per_instantiation():
         "swa_bwd_dq_tc<256>": "254 registers, 0 bytes spill stores",
         "swa_bwd_dq<float, 64>": "79 registers, 4 bytes spill stores",
         "swa_bwd_reduce": "40 registers"}
+
+
+def test_every_header_is_hashed_into_every_kernel_build():
+    """A kernel's library is named by a hash of its source and every
+    header in csrc (build.library_path): an edited header, the new
+    Hopper one included, rebuilds every kernel that may include it."""
+    from repro_torch.kernels import build
+    headers = {p.name for p in build.CSRC.glob("*.cuh")}
+    assert "hopper_bf16.cuh" in headers
+    for name in build.KERNELS:
+        assert headers <= {p.name for p in build._sources(name)}
+
+
+def test_a_refused_tensor_map_raises_its_own_message():
+    """Launch statuses from ENCODE_MISSING up are tensor maps the driver
+    could not make (csrc/hopper_bf16.cuh), told apart from a cudaError_t;
+    0 passes."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "hopper_bf16.cuh").read_text()
+    assert f"constexpr int ENCODE_MISSING = {build.ENCODE_MISSING};" in src
+    build.check("swa", 0)
+    with pytest.raises(RuntimeError, match="no tensor map"):
+        build.check("swa", build.ENCODE_MISSING)
+    with pytest.raises(RuntimeError, match=r"refused a tensor map \(CUresult 1\)"):
+        build.check("swa", build.ENCODE_MISSING + 2)
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+        build.check("swa", 700)
+
+
+def test_forward_check_holds_swa_to_chip_smokes_limit():
+    """launch/forward_check.py's bf16 limit is chip_smoke.py's, its edge
+    sweep covers the bf16 kernel's tile edges at every head dim, and its
+    six timed shapes are the main path's (chip_smoke.py's main, causal
+    and prefix shapes)."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.swa.ops import HEAD_DIMS
+    from repro_torch.launch import forward_check as fc
+    assert (fc.LIMIT_RTOL, fc.LIMIT_ATOL_RMS) == (chip_smoke.SWA_RTOL,
+                                                  chip_smoke.SWA_ATOL_RMS)
+    cases = fc.edge_cases()
+    assert {c[4] for c in cases} == set(HEAD_DIMS) == set(fc.HEAD_DIMS)
+    assert {c[3] for c in cases} >= {1, 127, 128, 129, 300}
+    assert {c[5] for c in cases if c[3] == 300} >= {1, 63, 127, 129, 300}
+    assert {c[6] for c in cases} >= {1, 127, 129, 300}
+    assert {c[1] // c[2] for c in cases} >= {1, 4, 7, 16}
+    want = {("recurrentgemma-9b", chip_smoke.LM_B, chip_smoke.LM_S,
+             get_config("recurrentgemma-9b").sliding_window, 0)}
+    for arch, b, s in chip_smoke.CAUSAL_SHAPES:
+        want.add((arch, b, s, s, 0))
+    for arch, b, s, prefix in chip_smoke.PREFIX_SHAPES:
+        want.add((arch + "-encoder" if arch == "whisper-medium" else arch,
+                  b, s, s, prefix))
+    assert {(n, b, s, w, p) for n, b, _, _, s, _, w, p in
+            fc.MAIN_SHAPES} == want
+
+
+def test_forward_check_names_each_instantiation():
+    from repro_torch.launch.forward_check import entry_name, ptxas_report
+    assert entry_name("_ZN12_GLOBAL__N_13wgr16swa_wgmma_kernelILi128ELb1EEEv"
+                      "14CUtensorMap_stS1_S1_P13__nv_bfloat16") == \
+        "swa_wgmma_kernel<128, true>"
+    assert entry_name("_ZN12_GLOBAL__N_13wgr16swa_wgmma_kernelILi64ELb0EEEv"
+                      "14CUtensorMap_st") == "swa_wgmma_kernel<64, false>"
+    assert entry_name("_ZN12_GLOBAL__N_110swa_kernelIfLi64EEEvPKT_") == \
+        "swa_kernel<64>"
+    assert entry_name("sum_slabs_kernel") == "sum_slabs_kernel"
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13wgr"
+           "12swa_v_absmaxILi32EEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 18 registers, used 0 barriers\n")
+    assert ptxas_report(log) == {
+        "swa_v_absmax<32>": "18 registers, 0 bytes spill stores"}

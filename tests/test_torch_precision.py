@@ -10,13 +10,19 @@ plain PyTorch on the CPU and held to the limits the card is held to.
   X), then adds b, takes cos and scales by sqrt(2/D). It must stay within
   the JAX tests' 1e-5 of the float64 map at their four shapes, where
   one-pass TF32 must not.
-* swa's bf16 route (csrc/swa.cu) splits the probabilities into two bf16
-  parts, hi = bf16(p) and lo = bf16(p - hi), for the product with v,
-  keeps the row sum in fp32, and rescales a running fp32 accumulator
-  block by block (64 keys). It must stay within chip_smoke.py's SWA_RTOL /
-  SWA_ATOL_RMS limit, which must still reject a window one key short and
-  a softmax scale 10 % high; rounding p once to bf16 must not stay
-  within it (the reason for the split).
+* swa's bf16 route (csrc/swa.cu) rounds the probabilities once to fp16
+  for the product with v, which it takes to fp16 after a power-of-two
+  scale per (batch, kv head), keeps the row sum in fp32, and rescales a
+  running fp32 accumulator block by block (128 keys, 64 at D = 256). It
+  must stay within chip_smoke.py's SWA_RTOL / SWA_ATOL_RMS limit at the
+  main shape, both causal head dims, both prefix masks and v near bf16's
+  largest and fp16's smallest normal values, where the limit must still
+  reject a window one key short, a softmax scale 10 % high and a prefix
+  one key short or none. Rounding p once to bf16 must not stay within it;
+  the plan before (p split into bf16 hi = bf16(p) and lo = bf16(p - hi),
+  P V twice) is kept beside it. Training's forward, which also writes
+  its output in fp32 for the backward's D = rowsum(dO o), splits p into
+  fp16 hi + lo: once-rounded p moves dQ over near-uniform attention.
 * swa_bwd's bf16 route (csrc/swa_bwd.cu) keeps S, dP, D and every sum in
   fp32 and rounds P and dS once to bf16 as the A operands of dV = P^T dO,
   dQ = dS K and dK = dS^T Q, summed over 64-row tiles and, for dK and dV,
@@ -29,6 +35,7 @@ No card, no kernel: these show that the plans, not the kernels, meet the
 limits; tests/test_torch_cuda.py and chip_smoke.py hold the kernels to
 the same limits on the card."""
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,6 +47,9 @@ from repro_torch.kernels.swa.ref import swa_forward_ref, swa_ref
 from repro_torch.kernels.swa.swa import kv_splits
 
 NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
+#: swa's fp16 plan scales max |v| of a (batch, kv head) into
+#: [2^V16_TOP, 2^(V16_TOP + 1)) (csrc/swa.cu's constant of that name)
+V16_TOP = 14
 TF32_MASK = -(1 << 13)   # 0xffffe000 as a signed 32-bit pattern
 
 
@@ -161,20 +171,48 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
-def swa_bf16_plan(q, k, v, window, split_p=True, block=64):
+def _band(s, window, prefix=0):
+    pos = torch.arange(s)
+    key, query = pos[None, :], pos[:, None]
+    return ((key <= query) | ((key < prefix) & (query < prefix))) & \
+        (key > query - window)
+
+
+def v_scale_exponents(v: torch.Tensor) -> torch.Tensor:
+    """The power-of-two exponent e per (batch, kv head) that the fp16 plan
+    scales v by (csrc/swa.cu swa_v_half): from the biased exponent E of
+    max |v|, e = V16_TOP + 127 - E clamped to [-126, 126], which puts max
+    |v| 2^e in [2^V16_TOP, 2^(V16_TOP + 1)) and keeps 2^e and 2^-e normal
+    fp32 values."""
+    amax = v.float().abs().amax(dim=(-2, -1)).contiguous()
+    biased = (amax.view(torch.int32) >> 23) & 0xFF
+    return (V16_TOP + 127 - biased).clamp(-126, 126)
+
+
+def swa_bf16_plan(q, k, v, window, split_p=True, block=64, prefix=0,
+                  p_fp16=False, v_scale=True, p_fp16_lo=False,
+                  fp32_out=False):
     """swa's bf16 route in plain torch: fp32 scores of bf16 inputs, an
-    online softmax over 64-key blocks, P as bf16 hi + lo parts (or, with
-    ``split_p`` false, rounded once to bf16) for P V while the row sum
-    keeps fp32, output rounded to bf16. q (B, H, S, D), k, v (B, K, S, D)
-    bf16."""
+    online softmax over ``block``-key blocks, the row sum kept in fp32,
+    output rounded to bf16 (returned in fp32 before that rounding with
+    ``fp32_out``: the kernel's o32). The product P V takes P as bf16 hi +
+    lo parts (or, with ``split_p`` false, rounded once to bf16); with
+    ``p_fp16``, P rounded once to fp16 (with ``p_fp16_lo`` as fp16 hi + lo
+    parts, training's forward) against v scaled by 2^e per (batch, kv
+    head) (:func:`v_scale_exponents`, or e = 0 without ``v_scale``) and
+    taken to fp16, the output scaled back by 2^-e. q (B, H, S, D), k, v
+    (B, K, S, D) bf16; ``prefix`` as swa_ref's."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     qg = q.float().reshape(b, kh, h // kh, s, d)
     scores = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * d ** -0.5
-    pos = torch.arange(s)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                              - window)
-    scores = scores.masked_fill(~band, -torch.inf)
+    scores = scores.masked_fill(~_band(s, window, prefix), -torch.inf)
+    vf = v.float()[:, :, None]
+    e = v_scale_exponents(v) if v_scale else torch.zeros(b, kh,
+                                                         dtype=torch.int32)
+    e = e[:, :, None, None, None]
+    if p_fp16:
+        vf = torch.ldexp(vf, e).half().float()
     m = torch.full(scores.shape[:-1] + (1,), -torch.inf)
     ell = torch.zeros_like(m)
     acc = torch.zeros(b, kh, h // kh, s, d)
@@ -185,14 +223,24 @@ def swa_bf16_plan(q, k, v, window, split_p=True, block=64):
         alpha = torch.exp(m - base)
         p = torch.exp(sc - base)
         ell = alpha * ell + p.sum(-1, keepdim=True)
-        vb = v.float()[:, :, None, k0:k0 + block]
-        hi = _bf16(p)
-        pv = hi @ vb
-        if split_p:
-            pv = _bf16(p - hi) @ vb + pv
+        vb = vf[..., k0:k0 + block, :]
+        if p_fp16:
+            hi = p.half().float()
+            pv = hi @ vb
+            if p_fp16_lo:
+                pv = (p - hi).half().float() @ vb + pv
+        else:
+            hi = _bf16(p)
+            pv = hi @ vb
+            if split_p:
+                pv = _bf16(p - hi) @ vb + pv
         acc = alpha * acc + pv
         m = m_new
-    return (acc / ell).reshape(b, h, s, d).bfloat16()
+    out = acc / ell
+    if p_fp16:
+        out = torch.ldexp(out, -e)
+    out = out.reshape(b, h, s, d)
+    return out if fp32_out else out.bfloat16()
 
 
 def test_swa_bf16_plan_meets_the_main_shape_limit():
@@ -214,9 +262,16 @@ def test_swa_bf16_plan_meets_the_main_shape_limit():
         > 1.0
 
 
+def kernel_block(d: int) -> int:
+    """Keys of one step of csrc/swa.cu's bf16 kernel: 64 at D = 256, else
+    128."""
+    return 64 if d == 256 else 128
+
+
 def test_swa_bf16_plan_matches_the_kernel_contract_at_ragged_shapes():
-    """S not a multiple of 64, GQA, window >= S: the block-wise plan is the
-    same function as the plain version within the bf16 limit."""
+    """S not a multiple of 64, GQA, window >= S: the block-wise plans (P
+    split, and P in fp16 at the kernel's key block) are the same function
+    as the plain version within the bf16 limit."""
     rng = np.random.default_rng(1)
     for s, window, h, kh, d in [(300, 100, 4, 2, 32), (200, 1000, 2, 1, 64),
                                 (130, 1, 2, 2, 128)]:
@@ -225,13 +280,125 @@ def test_swa_bf16_plan_matches_the_kernel_contract_at_ragged_shapes():
             for hh in (h, kh, kh))
         want = swa_ref(q.float(), k.float(), v.float(), window)
         assert swa_excess(swa_bf16_plan(q, k, v, window), want)[1] <= 1.0
+        assert swa_excess(swa_bf16_plan(q, k, v, window, p_fp16=True,
+                                        block=kernel_block(d)),
+                          want)[1] <= 1.0
 
 
-def _band(s, window, prefix=0):
-    pos = torch.arange(s)
-    key, query = pos[None, :], pos[:, None]
-    return ((key <= query) | ((key < prefix) & (query < prefix))) & \
-        (key > query - window)
+def _plan_case(seed, b, h, kh, s, d, v_magnitude=None):
+    """bf16 q, k, v from ``seed``; with ``v_magnitude``, v rescaled so
+    that max |v| is that value."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, n, s, d), dtype=np.float32)) for n in (h, kh, kh))
+    if v_magnitude is not None:
+        v = v / v.abs().max() * v_magnitude
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+@pytest.mark.parametrize("h,kh,s,d,window,prefix", [
+    (4, 1, 1024, 256, 256, 0),    # the reduced main shape: MQA, window 256
+    (8, 2, 1024, 128, 1024, 0),   # qwen3-4b's D = 128, GQA, causal
+    (4, 4, 1024, 64, 1024, 0),    # stablelm's D = 64, causal
+    (8, 1, 300, 256, 300, 256),   # PaliGemma's prefix mask, MQA
+    (4, 4, 300, 64, 300, 300),    # Whisper's encoder: prefix = window = S
+])
+def test_swa_fp16_plan_meets_the_limit_and_sees_the_planted_faults(
+        h, kh, s, d, window, prefix):
+    """The plan csrc/swa.cu's bf16 kernel takes: P rounded once to fp16,
+    v scaled by a power of two per (batch, kv head) and taken to fp16, so
+    that P V is one fp16 product at the kernel's key block. It meets
+    chip_smoke.py's SWA_RTOL / SWA_ATOL_RMS limit at the main shape, both
+    causal head dims and both prefix masks, and the limit still rejects a
+    softmax scale 10 % high, a window one key short (below S) and a
+    prefix one key short or none."""
+    q, k, v = _plan_case(7, 1, h, kh, s, d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = swa_ref(qf, kf, vf, window, prefix)
+    got = swa_bf16_plan(q, k, v, window, block=kernel_block(d),
+                        prefix=prefix, p_fp16=True)
+    assert swa_excess(got, want)[1] <= 1.0
+    faults = [swa_ref(qf * 1.1, kf, vf, window, prefix)]
+    if window < s:
+        faults.append(swa_ref(qf, kf, vf, window - 1, prefix))
+    if prefix:
+        faults += [swa_ref(qf, kf, vf, window, prefix - 1),
+                   swa_ref(qf, kf, vf, window, 0)]
+    for fault in faults:
+        assert swa_excess(fault.bfloat16(), want)[1] > 1.0
+
+
+@pytest.mark.parametrize("v_max", [
+    3.0e38,       # near bf16's largest (3.39e38): unscaled fp16 overflows
+    2.0 ** -14,   # fp16's smallest normal: most of v unscaled is subnormal
+    2.0 ** -20,   # below it
+])
+def test_swa_fp16_plan_scale_keeps_extreme_v_within_the_limit(v_max):
+    """The power-of-two scale puts every (batch, kv head)'s v into fp16's
+    range before the product, so bf16 values keep their bits: the plan
+    meets the limit with max |v| near bf16's largest and near or below
+    fp16's smallest normal, where the same plan without the scale gives
+    infinities or misses the limit. Both sides are compared after an
+    exact power-of-two rescale, since the limit's RMS of values near
+    3e38 overflows fp32."""
+    q, k, v = _plan_case(5, 2, 4, 2, 512, 128, v_max)
+    c = 2.0 ** -math.floor(math.log2(v_max))
+    want = swa_ref(q.float(), k.float(), v.float(), 512) * c
+    got = swa_bf16_plan(q, k, v, 512, block=128, p_fp16=True)
+    assert swa_excess(got.float() * c, want)[1] <= 1.0
+    unscaled = swa_bf16_plan(q, k, v, 512, block=128, p_fp16=True,
+                             v_scale=False)
+    assert swa_excess(unscaled.float() * c, want)[1] > 1.0
+
+
+def test_swa_v_scale_exponents_reach_fp16_range_exactly():
+    """2^e max |v| lands in [2^V16_TOP, 2^(V16_TOP + 1)) from bf16's
+    largest magnitudes down to 2^-100 (the clamp of e to 126 binds only
+    below 2^-112), and the scaled bf16 values are exact in fp16 down to
+    2^-27 of the head's max."""
+    for top in (3.0e38, 1.0, 2.0 ** -14, 2.0 ** -100):
+        v = torch.tensor([top, top / 3, top * 2.0 ** -27]).bfloat16()
+        e = v_scale_exponents(v.reshape(1, 1, 3, 1))
+        scaled = torch.ldexp(v.float(), e.reshape(1))
+        assert 2.0 ** V16_TOP <= float(scaled.abs().max()) \
+            < 2.0 ** (V16_TOP + 1)
+        assert torch.equal(scaled.half().float(), scaled)
+
+
+def test_swa_kernel_takes_the_fp16_plan():
+    """csrc/swa.cu's bf16 route is the plan these tests hold: its P V
+    product is an fp16 wgmma with P from registers, v is scaled by the
+    same V16_TOP, training's forward (o32 asked for) splits P into fp16
+    hi + lo, and no bf16 split of P or mma.sync is left in it."""
+    src = (Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+           / "csrc" / "swa.cu").read_text()
+    assert f"constexpr int V16_TOP = {V16_TOP};" in src
+    assert "wgmma_rs_f16" in src and "wgmma_ss_bf16" in src
+    assert "hop::split_half2" in src
+    assert "o32 != nullptr ? swa_wgmma_kernel<D, true>" in src
+    assert "split_bf16" not in src and "mma_bf16" not in src
+
+
+def test_training_forward_splits_p_in_fp16_for_the_backward():
+    """Why training's forward splits P: the backward reads D = rowsum(dO
+    o32) from the forward's fp32 output. Over near-uniform attention (an
+    encoder's similar frames, prefix = window = S) P rounded once to fp16
+    puts o32 9e-6 of its norm off and dQ a third further from the float64
+    gradients than the exact fp32 output does; P split into fp16 hi + lo
+    keeps o32 within 1e-6 and dQ where the exact output puts it."""
+    def rel(g, w):
+        return float(torch.linalg.norm(g.double() - w.double())
+                     / torch.linalg.norm(w.double()))
+    q, k, v, o32, lse, dout, _ = _prefix_case(4, 1, 4, 4, 300, 64, 300,
+                                              300, similar=True)
+    want = swa_bwd_f64(q, k, v, o32, lse, dout, 300, prefix=300)
+    exact = swa_bwd_bf16_plan(q, k, v, o32, lse, dout, 300, prefix=300)[0]
+    for lo in (True, False):
+        o = swa_bf16_plan(q, k, v, 300, block=kernel_block(64), prefix=300,
+                          p_fp16=True, p_fp16_lo=lo, fp32_out=True)
+        dq = swa_bwd_bf16_plan(q, k, v, o, lse, dout, 300, prefix=300)[0]
+        assert (rel(o, o32) < 1e-6) == lo
+        assert (rel(dq, want[0]) <= 1.05 * rel(exact, want[0])) == lo
 
 
 def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64,
