@@ -61,7 +61,17 @@ B = 4 x 768 positions, Whisper B = 4 x 448 tokens after 1,500 frames),
 bf16 with remat, 4 AdamW steps each after the step-0 gradient check,
 every attention layer's backward on swa_bwd (PaliGemma's with prefix 256,
 Whisper's encoder's with prefix = S), beside the dry run's predicted
-bytes. Before the main path it also holds the two backward kernels
+bytes. Then it drives the benchmark and example copies through their
+functions: the paper's Table 4 (``torch_benchmarks/table4_cg_features``)
+at its feature counts, 10,000 to 60,000, with d = 440 and c = 147 on
+131,072 rows (of 2,251,569: Z at 60,000 features is 31.5 GB); the
+multi-tenant sweep and QoS at ``torch_benchmarks/run.py``'s sizes, in
+memory and over TCP, the cache and chain benchmarks, each with its smoke
+assertions; kernel_bench's rows; the training example
+(``examples/torch_train_lm.py``) at its 100m preset for 60 steps with
+GaLore refreshed through the engine, and its checkpoint read back bit
+for bit; and the serving example for qwen3-4b, paligemma-3b and
+whisper-medium at their reduced configs. Before the main path it also holds the two backward kernels
 against their plain versions at the JAX sweeps and the training shapes,
 swa at window = S at the dense families' shapes, swa and swa_bwd with a
 prefix at PaliGemma's and Whisper's encoder's shapes, the reduced
@@ -3165,6 +3175,287 @@ def phase_train_modalities(counters) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 8c: the benchmark and example copies on the card
+# ---------------------------------------------------------------------------
+#: the paper's Table 4 on the card: its feature counts at TIMIT's width
+#: and classes, on 131,072 of its 2,251,569 rows (Z at 60,000 features is
+#: 31.5 GB), 20 iterations at tol = 0 as phase_cg
+TABLE4_ROWS = 131_072
+TABLE4_FEATURES = (10_000, 20_000, 30_000, 40_000, 50_000, 60_000)
+#: the multi-tenant sweep at run.py's sizes, one rep a configuration (the
+#: reference's three interleaved reps are for a noisy two-core host; three
+#: would add 48 s to the run)
+MULTICLIENT = {"clients_sweep": [1, 2, 4], "duration_s": 2.0, "k": 8,
+               "workers": 2, "reps": 1}
+QOS = {"duration_s": 2.0, "k": 8, "workers": 2}
+#: the training example at its full size
+TRAIN_LM = {"preset": "100m", "steps": 60, "batch": 8, "seq": 256,
+            "galore_rank": 8, "galore_refresh": 50}
+SERVE_ARCHS = ("qwen3-4b", "paligemma-3b", "whisper-medium")
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _counted(counters, fn, *args, **kwargs) -> tuple:
+    """(fn's result, the launches it made)."""
+    for c in counters.values():
+        c.reset()
+    out = fn(*args, **kwargs)
+    return out, {k: c.value for k, c in counters.items()}
+
+
+def _copies_table4(counters) -> tuple:
+    """Table 4 at TABLE4_FEATURES through ``table4_cg_features.run``: ms
+    an iteration for each feature count beside the paper's 30-node
+    figure, the linearity ratio, and rf_map and normal_matvec launched
+    exactly as phase_cg counts them per solve (one expansion, one matvec
+    an iteration)."""
+    import torch
+    from torch_benchmarks import table4_cg_features as table4
+    t0 = time.perf_counter()
+    res, launches = _counted(counters, table4.run, DEVICE, rows=TABLE4_ROWS,
+                             d=TIMIT_D, c=TIMIT_C, features=TABLE4_FEATURES,
+                             iters=CG_ITERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    solves = res["solves"] * len(TABLE4_FEATURES)
+    want = {k: 0 for k in launches}
+    want.update(rf_map=solves, normal_matvec=solves * CG_ITERS)
+    rec = {"rows": TABLE4_ROWS, "rows_of": 2_251_569, "d": TIMIT_D,
+           "c": TIMIT_C, "iterations": CG_ITERS,
+           "ms_per_iteration": {f: s * 1e3
+                                for f, s in res["measured"].items()},
+           "paper_30_nodes_ms": {f: table4.PAPER[f][0]
+                                 for f in TABLE4_FEATURES
+                                 if f in table4.PAPER},
+           "linearity_ratio": res["linearity_ratio"],
+           "linearity_ideal": TABLE4_FEATURES[-1] / TABLE4_FEATURES[0],
+           "solves": solves, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "copies_table4", **rec})
+    if launches != want:
+        raise AssertionError(f"Table 4 launched {launches}, want {want}")
+    return rec, launches
+
+
+def _copies_service(counters) -> tuple:
+    """The multi-tenant sweep and QoS at run.py's sizes, in memory and
+    over the socket, then cache_amortization's and chain_pipelining's
+    smokes: every smoke assertion holds on the card, the QoS p99 bound
+    included."""
+    from torch_benchmarks import cache_amortization, chain_pipelining, \
+        multiclient_throughput as multiclient
+    t0 = time.perf_counter()
+    total = {k: 0 for k in counters}
+    rec = {}
+
+    def counted(fn, *args, **kwargs):
+        out, got = _counted(counters, fn, *args, **kwargs)
+        for k, v in got.items():
+            total[k] += v
+        return out
+
+    for bridge in ("inmemory", "socket"):
+        sweep = counted(multiclient.run, **MULTICLIENT, bridge=bridge,
+                        device=DEVICE)
+        rec[f"multiclient_{bridge}"] = {
+            n: {"serial_ops_s": r["serial_ops_s"],
+                "async_ops_s": r["async_ops_s"],
+                "speedup": r["async_ops_s"] / r["serial_ops_s"],
+                "light_p99_ms_serial": r["serial"]["light_p99_s"] * 1e3,
+                "light_p99_ms_async": r["async"]["light_p99_s"] * 1e3,
+                "max_running": r["async"]["max_running"]}
+            for n, r in sweep.items()}
+        qos = counted(multiclient.run_qos, **QOS, smoke=True, bridge=bridge,
+                      device=DEVICE)
+        solo = qos["solo"]["light_p99_s"]
+        rec[f"qos_{bridge}"] = {
+            "light_p99_ms": {m: r["light_p99_s"] * 1e3
+                             for m, r in qos.items()},
+            "ratio_on": qos["on"]["light_p99_s"] / solo,
+            "ratio_off": qos["off"]["light_p99_s"] / solo,
+            "rejected": qos["on"]["rejected"],
+            "preempted": qos["on"]["preempted"]}
+        cache = counted(cache_amortization.run, 3, (512, 128), k=8,
+                        smoke=True, bridge=bridge, device=DEVICE)
+        if not cache["ok"]:
+            raise AssertionError(f"cache_amortization's smoke failed over "
+                                 f"{bridge}: {cache}")
+        rec[f"cache_{bridge}"] = cache
+    rec["chain"] = counted(chain_pipelining.run, [4, 16], smoke=True,
+                           device=DEVICE)
+    rec["launches"] = total
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "copies_service", **rec})
+    return rec, total
+
+
+def _copies_train(counters) -> tuple:
+    """``examples/torch_train_lm.py``'s loop at TRAIN_LM: the 100m
+    preset at full size (12 layers, width 768, vocabulary 32,768, batch 8
+    x 256), GaLore projectors refreshed through the engine at the start
+    and after step 50. The loss must fall; every layer's attention is
+    swa forward and swa_bwd backward, once a loss gradient each (twice
+    forward under remat); the checkpoint must restore bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.core import AlchemistContext
+    from repro_torch.core.libraries import elemental
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optim import adamw_init, master_params
+    ex = _load_example("torch_train_lm")
+    t0 = time.perf_counter()
+    cfg = ex.PRESETS[TRAIN_LM["preset"]]
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(0))
+    params = master_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    ac = AlchemistContext(device=DEVICE)
+    ac.register_library("elemental", elemental)
+    steps = TRAIN_LM["steps"]
+    (params, opt, run), launches = _counted(
+        counters, ex.train_lm, model, params, adamw_init(params),
+        ex.corpus(cfg, TRAIN_LM["batch"], TRAIN_LM["seq"]),
+        ex.train_config(steps), steps, galore_rank=TRAIN_LM["galore_rank"],
+        galore_refresh=TRAIN_LM["galore_refresh"], ac=ac,
+        log=lambda line: print(f"# train_lm: {line}", flush=True))
+    peak = torch.cuda.max_memory_allocated()
+    ac.stop()
+    ac.engine.shutdown()
+    # s a step and tokens/s between the logs at step 10 and at the
+    # refresh step: no refresh and no first call among those steps
+    log = {r["step"]: r for r in run["log"]}
+    lo, hi = 10, TRAIN_LM["galore_refresh"]
+    span = log[hi]["elapsed_s"] - log[lo]["elapsed_s"]
+    tokens = TRAIN_LM["batch"] * TRAIN_LM["seq"]
+    with tempfile.TemporaryDirectory(prefix="train-lm-ckpt-") as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        t_ck = time.perf_counter()
+        same = ex.checkpoint_round_trip(path, params, opt, steps)
+        ckpt_s = time.perf_counter() - t_ck
+        ckpt_bytes = os.path.getsize(path)
+    layers = sum(k.value in ("attention", "local_attn")
+                 for k in cfg.block_kinds())
+    forwards = 2 if cfg.remat == "full" else 1
+    want = {k: 0 for k in launches}
+    want.update(swa=forwards * run["backwards"] * layers,
+                swa_bwd=run["backwards"] * layers)
+    losses = run["losses"]
+    rec = {"preset": TRAIN_LM["preset"], "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "batch": TRAIN_LM["batch"],
+           "seq": TRAIN_LM["seq"], "steps": steps, "remat": cfg.remat,
+           "galore_rank": TRAIN_LM["galore_rank"],
+           "galore_refresh": TRAIN_LM["galore_refresh"],
+           "refreshes": run["refreshes"], "projectors": run["projectors"],
+           "backwards": run["backwards"], "loss_first": losses[0],
+           "loss_last": losses[-1], "losses_every_10": losses[::10],
+           "s_per_step": span / (hi - lo),
+           "tokens_per_s": (hi - lo) * tokens / span,
+           "max_memory_allocated": peak, "checkpoint_bytes": ckpt_bytes,
+           "checkpoint_round_trip_s": ckpt_s,
+           "checkpoint_bit_for_bit": same, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "copies_train_lm", **rec})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: the loss did not fall: {losses}")
+    if run["refreshes"] != 2 or not run["projectors"]:
+        raise AssertionError(f"train_lm: GaLore refreshed {run['refreshes']}"
+                             f" times, {run['projectors']} projectors")
+    if not same:
+        raise AssertionError("train_lm: the checkpoint did not restore bit "
+                             "for bit")
+    if launches != want:
+        raise AssertionError(f"train_lm launched {launches}, want {want}")
+    del model, params, opt
+    return rec, launches
+
+
+def _copies_serve(counters) -> tuple:
+    """``examples/torch_serve_decode.py``'s traffic (6 requests, 12 new
+    tokens each, waves of 4) for SERVE_ARCHS at their reduced configs:
+    every request gets its tokens, and each prefill launches swa once per
+    attention layer, the encoder's included."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import build_model
+    ex = _load_example("torch_serve_decode")
+    total = {k: 0 for k in counters}
+    recs = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_reduced(arch)
+        model = build_model(cfg, device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(0))
+        (done, engine, seconds), launches = _counted(
+            counters, ex.serve, model, 6, 12)
+        want = {k: 0 for k in launches}
+        want["swa"] = engine.stats["prefills"] * (cfg.num_layers
+                                                  + cfg.encoder_layers)
+        toks = [r.out_tokens for r in done]
+        recs[arch] = {"requests": len(done), "seconds": seconds,
+                      "new_tokens": sum(len(t) for t in toks),
+                      "stats": {k: engine.stats[k] for k in
+                                ("prefills", "decode_steps", "requests")},
+                      "first_tokens": toks[0][:4], "launches": launches}
+        if launches != want or len(done) != 6 or any(
+                len(t) != 12 or not all(0 <= x < cfg.vocab_size for x in t)
+                for t in toks):
+            raise AssertionError(f"serve_decode {arch}: {recs[arch]}, "
+                                 f"want launches {want}")
+        for k, v in launches.items():
+            total[k] += v
+        del model, engine, done
+    emit({"phase": "copies_serve", **recs})
+    return recs, total
+
+
+def phase_copies(counters) -> tuple:
+    """The benchmark and example copies on the card through their
+    functions: Table 4 at the paper's feature counts; the multi-tenant
+    sweep, QoS, cache and chain benchmarks with their smoke assertions;
+    kernel_bench's rows (its launches are timing runs, not counted);
+    the training example at its 100m preset with a checkpoint round trip;
+    the serving example for three architectures. Returns (the launch
+    counts of the phase, its records)."""
+    import torch
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from torch_benchmarks import kernel_bench
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters}
+    recs = {}
+    for name, step in (("table4", _copies_table4),
+                       ("service", _copies_service)):
+        recs[name], got = step(counters)
+        for k, v in got.items():
+            total[k] += v
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs["kernel_bench"] = kernel_bench.run(DEVICE)
+    emit({"phase": "copies_kernel_bench", **recs["kernel_bench"],
+          "seconds": time.perf_counter() - t0})
+    for name, step in (("train_lm", _copies_train),
+                       ("serve_decode", _copies_serve)):
+        recs[name], got = step(counters)
+        for k, v in got.items():
+            total[k] += v
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "copies", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, recs
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the invariant gate on the card
 # ---------------------------------------------------------------------------
 #: the traced drive's bound and the explorer's sweep on the card
@@ -3444,8 +3735,12 @@ def main() -> int:
         r["prefix_launches"] for r in modal_train)
     gc.collect()
     torch.cuda.empty_cache()
+    # the benchmark and example copies, through their functions
+    copies_launches, _ = phase_copies(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
     for got in (dense_launches, family_launches, modal_launches,
-                modal_train_launches):
+                modal_train_launches, copies_launches):
         for k, v in got.items():
             launches[k] += v
 
