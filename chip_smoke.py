@@ -233,11 +233,20 @@ KERNEL_DESIGN = {
                 "row over a chunk of time from registers (8 warps of 32 "
                 "steps), the chunks chained by a carry with release/acquire "
                 "flags in launch-ticket order; a fixed association",
-    "swa_bwd": "bf16 mma.sync, P and dS rounded to bf16, D from the "
-               "forward's fp32 output; dQ kernel of 64 queries a block, "
-               "dK/dV kernel of 64 keys a block over a quarter of the kv "
-               "head's query heads, fp32 partials summed in order (no "
-               "atomics); a prefix widens the tiles a block walks",
+    "swa_bwd": "bf16: wgmma on TMA-fed 128-byte swizzled tiles, a "
+               "producer warpgroup (setmaxnreg 40) and two consumer "
+               "warpgroups (232); P and dS from registers rounded to bf16, "
+               "D from the forward's fp32 output. dQ kernel: 128 queries a "
+               "block, 64 a consumer, S and dP then dQ += dS K over a "
+               "3-stage ring of key tiles (64 rows, 32 at D = 256); dK/dV "
+               "kernel: keys as the rows of every product over a ring of "
+               "64-query steps of up to a quarter of the kv head's query "
+               "heads; at D <= 64 each consumer owns 64 keys and all four "
+               "products, above both own the same 64, consumer 0 S^T, P^T "
+               "and dV, consumer 1 dP^T, dS^T (P^T in fp32 through shared "
+               "memory) and dK; fp32 partials summed in order where split "
+               "(no atomics); a prefix widens the tiles a block walks. "
+               "fp32: CUDA cores",
     "lru_scan_reverse": "the lru_scan kernel with time reversed (its "
                         "REVERSE template flag), writing a's gradient "
                         "da_t = lambda_t h_{t-1} in the same pass",

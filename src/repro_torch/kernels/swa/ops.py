@@ -188,11 +188,11 @@ def swa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o`` is fp32: the forward's output before rounding,
     :func:`swa_forward`'s o32 (the kernel reads D = rowsum(dO o) from it).
     The plain version for CPU tensors, the kernels of ``csrc/swa_bwd.cu``
-    for CUDA tensors, the prefix's mask included: fp32 on the CUDA cores, bf16 on
-    the tensor cores (P and dS rounded to bf16 as operands of their
-    products), where q, k and v must keep rows 16-byte aligned as in the
-    forward. Gradients come back in the input type, each laid out like
-    its input."""
+    for CUDA tensors, the prefix's mask included: fp32 on the CUDA cores,
+    bf16 on Hopper's tensor cores (wgmma on tiles that TMA brings, P and
+    dS rounded to bf16 as operands of their products), where q, k and v
+    must keep rows 16-byte aligned as in the forward. Gradients come back
+    in the input type, each laid out like its input."""
     _check(q, k, v, window, prefix)
     device.require_tensor("swa_bwd", "o", o, 4, contiguous=False)
     device.require_tensor("swa_bwd", "dout", dout, 4, contiguous=False)

@@ -57,6 +57,15 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: many blocks per key tile (MQA's 16 heads to 1: four times the blocks)
 KV_SPLITS = 4
 
+#: rows and stages of the bf16 backward's tiles by head dim, as
+#: ``csrc/swa_bwd.cu``'s DqTile and KvTile set them: the dQ kernel's
+#: queries a block, keys a step and stages; the dK/dV kernel's keys a
+#: block, queries a step and stages (128 keys a block where each consumer
+#: owns 64 of them with both sums, D <= 64)
+BWD_TILES = {d: {"dq": (128, 32 if d == 256 else 64, 3),
+                 "dkdv": (128 if d <= 64 else 64, 64, 2 if d == 256 else 3)}
+             for d in (32, 64, 128, 256)}
+
 
 def kv_splits(group: int) -> int:
     """Blocks a kv head's ``group`` query heads are split over in the bf16
@@ -83,16 +92,18 @@ def swa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, S)) and the output's gradient ``dout`` (q's shape and type).
     Every tensor D-contiguous,
     other strides free (bf16: rows 16-byte aligned). Returns the three
-    gradients in the input type, each laid out like its input. In bf16
-    the dK/dV partials of each split of a kv head's query heads go to an
-    fp32 scratch of 2 x splits x K's size."""
+    gradients in the input type, each laid out like its input. In bf16,
+    where a kv head's query heads are split over more than one dK/dV
+    block, the splits' partials go to an fp32 scratch of 2 x splits x K's
+    size."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     splits = kv_splits(h // kh)
     part = torch.empty((2, splits, b, kh, s, d), dtype=torch.float32,
-                       device=q.device) if q.dtype == torch.bfloat16 else None
+                       device=q.device) \
+        if q.dtype == torch.bfloat16 and splits > 1 else None
     strides = (ctypes.c_int64 * 24)(*(
         st for t in (q, k, v, o, dout, dq, dk, dv) for st in t.stride()[:3]))
     lib = build.load("swa_bwd")

@@ -6,7 +6,7 @@ training shapes of ``chip_smoke.py``'s ``phase_train``, and time both
 there. A chip call of about two minutes for work on these two kernels,
 where ``chip_smoke.py`` takes ten; ``--only`` checks one of them alone.
 
-  python -m repro_torch.launch.backward_check [--only swa_bwd|lru_scan|prefix]
+  python -m repro_torch.launch.backward_check [--only swa_bwd|lru_scan|prefix|time]
 
 Prints the ptxas report of each kernel it built (registers and spills of
 each instantiation), one JSON line per case (for swa_bwd the worst error
@@ -25,6 +25,17 @@ non-zero when a case is past its tolerance (2e-5 of max |want| in fp32;
 in bf16 3e-2 of max |want| and 5e-3 of RMS(want), as ``chip_smoke.py``'s
 GRAD_TOL and GRAD_RMS_TOL; lru_scan 1e-5 (fp32) or 3e-2 (bf16) absolute
 plus relative) or its bits differ.
+
+``--only time`` times swa_bwd at ``TIME_SHAPES``, the five shapes that
+training gives it (``time_shape``: bf16, each against the plain backward
+at the GRAD_TOL and GRAD_RMS_TOL limits, with SDPA's backward, the bound,
+each kernel's device milliseconds from ``torch.profiler`` and the host's
+microseconds a call), and the fp32 route once with fp32 inputs at
+Whisper's encoder shape. It uses the package's public functions only, so
+the same file also times an older tree of the package put first on
+PYTHONPATH (a parent commit, in turns with the change):
+
+  PYTHONPATH=<parent>/src python src/repro_torch/launch/backward_check.py --only time
 
 ``--only prefix`` asks where D = rowsum(dO o) from a bf16 o would take
 swa_bwd with a bidirectional prefix (ROADMAP B.7) at whisper-medium's
@@ -56,6 +67,7 @@ from repro_torch.kernels.lru_scan.ref import lru_scan_chunked_ref, \
 from repro_torch.kernels.swa import swa as swa_launcher
 from repro_torch.kernels.swa.ops import swa_backward, swa_forward
 from repro_torch.kernels.swa.ref import swa_backward_ref, swa_forward_ref
+from repro_torch.launch.forward_check import visible_pairs
 
 SWA_CASES = [  # (B, H, K, S, D, window): the JAX sweep, edges, training
     (2, 4, 2, 128, 32, 32), (2, 4, 2, 256, 32, 96), (2, 4, 2, 200, 32, 48),
@@ -72,10 +84,19 @@ LRU_CASES = [(2, 64, 128), (1, 100, 96), (3, 128, 512), (1, 1, 64),
 # (serving's B = 4, training's B = 2), and one long prompt
 LRU_SWEEP = [(1, 4096, 4096), (2, 4096, 4096), (4, 4096, 4096),
              (8, 4096, 4096), (1, 16384, 4096)]
+# (name, B, H, K, S, D, window, prefix): swa_bwd's shapes in training
+TIME_SHAPES = (
+    ("recurrentgemma-train", 2, 16, 1, 4096, 256, 2048, 0),
+    ("paligemma-prefix", 4, 8, 1, 768, 256, 768, 256),
+    ("whisper-encoder", 4, 16, 16, 1500, 64, 1500, 1500),
+    ("lm-100m-example", 8, 12, 12, 256, 64, 256, 0),
+    ("whisper-decoder-self", 4, 16, 16, 448, 64, 448, 0),
+)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 RMS_TOL = {torch.bfloat16: 5e-3}
-# H100 SXM bf16 dense tensor-core peak and HBM3 rate, for swa_bwd's bound
-BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+# H100 SXM bf16 dense tensor-core and fp32 CUDA-core peaks and HBM3 rate,
+# for swa_bwd's bound
+BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
 def _ms(fn, reps: int) -> float:
     fn()
@@ -301,17 +322,142 @@ def d_from_bf16(dev) -> dict:
     return rec
 
 
+def _grad_errs(got, want, dt) -> dict:
+    """Each gradient's max error over max |want| and, in bf16, RMS error
+    over RMS(want), with ``ok`` at the module's limits."""
+    rec = {}
+    ok = True
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        rec[n] = float((g.float() - w).abs().max()
+                       / w.abs().max().clamp_min(1e-30))
+        ok &= bool(torch.isfinite(g).all()) and rec[n] <= TOL[dt]
+        if dt in RMS_TOL:
+            err = g.double() - w.double()
+            rec[f"rms_{n}"] = float(err.pow(2).mean().sqrt() / w.double().pow(
+                2).mean().sqrt().clamp_min(1e-300))
+            ok &= rec[f"rms_{n}"] <= RMS_TOL[dt]
+    rec["ok"] = ok
+    return rec
+
+
+def time_shape(rn, name, b, h, kh, s, d, window, prefix, reps: int = 20,
+               dt=torch.bfloat16) -> dict:
+    """swa_bwd at one shape on (B, S, H, D) views: its gradients against
+    the plain backward on fp32 copies, its mean ms over ``reps`` calls
+    (CUDA events), each kernel's device ms a call (``torch.profiler``)
+    and the host µs a call takes to enqueue; beside it, in bf16, the
+    backward of one scaled_dot_product_attention call on the same
+    operands (k and v repeated to the query heads; causal at window = S
+    without a prefix, none at prefix = S, else the mask as a bool mask),
+    by events, host µs and the device ms of its kernels,
+    and the bound: five band products of 2 D flops per visible pair at
+    the bf16 rate (fp32: the CUDA cores' 67 TFLOP/s), or reading q, k, v,
+    the fp32 o, dO and lse and writing the three gradients once."""
+    F = torch.nn.functional
+    q, k, v, dout = (rn(b, s, n, d).to(dt).transpose(1, 2)
+                     for n in (h, kh, kh, h))
+    _, lse, o = swa_forward(q, k, v, window, with_lse=True, prefix=prefix)
+    got = swa_backward(q, k, v, o, lse, dout, window=window, prefix=prefix)
+    want = swa_backward_ref(q.float(), k.float(), v.float(), o, lse,
+                            dout.float(), window, prefix)
+    rec = {"shape": name, "dims": [b, h, kh, s, d, window, prefix],
+           "dtype": str(dt).removeprefix("torch."),
+           "err": _grad_errs(got, want, dt)}
+    del got, want
+
+    def call():
+        return swa_backward(q, k, v, o, lse, dout, window=window,
+                            prefix=prefix)
+    rec["ms"] = _ms(call, reps)
+    rec["host_us"] = _host_us(call)
+    rec["kernels_ms"] = profile_bwd(call)
+    rec["device_ms"] = sum(rec["kernels_ms"].values())
+    item = 2 if dt == torch.bfloat16 else 4
+    nbytes = item * (3 * b * h * s * d + 4 * b * kh * s * d) \
+        + 4.0 * (b * h * s * d + b * h * s)
+    flops = 10.0 * b * h * d * visible_pairs(s, window, prefix)
+    rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+    rec["bound_ms"] = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    if dt == torch.bfloat16:
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        kx, vx = (t.repeat_interleave(h // kh, dim=1) for t in (kl, vl))
+        if prefix == s:
+            out = F.scaled_dot_product_attention(ql, kx, vx)
+        elif prefix == 0 and window >= s:
+            out = F.scaled_dot_product_attention(ql, kx, vx, is_causal=True)
+        else:
+            pos = torch.arange(s, device=q.device)
+            key, query = pos[None, :], pos[:, None]
+            mask = ((key <= query) | ((key < prefix) & (query < prefix))) \
+                & (key > query - window)
+            out = F.scaled_dot_product_attention(ql, kx, vx, attn_mask=mask)
+
+        def library():
+            return torch.autograd.grad(out, (ql, kl, vl), dout,
+                                       retain_graph=True)
+        rec["sdpa_bwd_ms"] = _ms(library, reps)
+        rec["sdpa_bwd_host_us"] = _host_us(library)
+        # its kernels' device time: autograd's host work a call passes the
+        # device's at every shape but the longest
+        rec["sdpa_bwd_device_ms"] = sum(profile_bwd(library).values())
+    rec["device"] = torch.cuda.get_device_name(q.device)
+    return rec
+
+
+def time_shapes(rn, reps: int) -> list[dict]:
+    """``time_shape`` at every shape of TIME_SHAPES in bf16, and at
+    Whisper's encoder in fp32 (the CUDA-core route), one JSON line
+    each."""
+    out = []
+    for shape in TIME_SHAPES:
+        out.append(time_shape(rn, *shape, reps=reps))
+        print(json.dumps(out[-1]), flush=True)
+        torch.cuda.empty_cache()
+    enc = next(x for x in TIME_SHAPES if x[0] == "whisper-encoder")
+    out.append(time_shape(rn, *enc, reps=3, dt=torch.float32))
+    print(json.dumps(out[-1]), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_all(dev, reps: int) -> int:
+    """``--only time``: build swa and swa_bwd, print swa_bwd's ptxas
+    report (registers and spills of every instantiation, and any line
+    that names a serialised wgmma), then ``time_shapes``."""
+    t0 = time.perf_counter()
+    build.build_all(("swa", "swa_bwd"))
+    log = build.build_log.get("swa_bwd", {}).get("ptxas", "")
+    print(json.dumps({
+        "build_s": time.perf_counter() - t0,
+        "device": torch.cuda.get_device_name(dev),
+        "swa_bwd_ptxas": ptxas_report(log),
+        "ptxas_warnings": [ln.strip() for ln in log.splitlines()
+                           if "warning" in ln.lower()]}), flush=True)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    ok = all(rec["err"]["ok"] for rec in time_shapes(rn, reps))
+    print("ALL_OK" if ok else "FAILED", flush=True)
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("swa_bwd", "lru_scan", "prefix"),
-                    help="check and time one kernel family alone, or "
+    ap.add_argument("--only", choices=("swa_bwd", "lru_scan", "prefix",
+                                       "time"),
+                    help="check and time one kernel family alone, "
                          "measure D from the bf16 o at whisper-medium's "
-                         "encoder")
+                         "encoder, or time swa_bwd at TIME_SHAPES alone")
+    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     dev = explicit_device(args.device, "repro_torch.launch.backward_check")
     if dev.type != "cuda":
         raise SystemExit("backward_check times kernels: it needs cuda")
+    if args.only == "time":
+        return time_all(dev, args.reps)
     if args.only == "prefix":
         t0 = time.perf_counter()
         build.build_all(("swa", "swa_bwd"))
@@ -334,15 +480,6 @@ def main(argv=None) -> int:
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    def rel(got, want):
-        return float((got.float() - want.float()).abs().max()
-                     / want.float().abs().max().clamp_min(1e-30))
-
-    def rms(got, want):
-        err = got.double() - want.double()
-        return float(err.pow(2).mean().sqrt()
-                     / want.double().pow(2).mean().sqrt().clamp_min(1e-300))
-
     ok = True
     for dt in (torch.float32, torch.bfloat16):
         for b, h, kh, s, d, w in SWA_CASES * swa_on:
@@ -357,14 +494,7 @@ def main(argv=None) -> int:
             rec = {"kernel": "swa_bwd", "dtype": str(dt),
                    "shape": [b, h, kh, s, d, w],
                    "lse": float((lse - want_lse).abs().max()),
-                   **{n: rel(g, x) for n, g, x in
-                      zip(("dq", "dk", "dv"), got, want)}}
-            rec["ok"] = all(rec[n] <= TOL[dt] for n in ("dq", "dk", "dv"))
-            if dt in RMS_TOL:
-                rec.update({f"rms_{n}": rms(g, x) for n, g, x in
-                            zip(("dq", "dk", "dv"), got, want)})
-                rec["ok"] &= all(rec[f"rms_{n}"] <= RMS_TOL[dt]
-                                 for n in ("dq", "dk", "dv"))
+                   **_grad_errs(got, want, dt)}
             ok &= rec["ok"]
             print(json.dumps(rec), flush=True)
         for b, s, w in LRU_CASES * lru_on:
@@ -379,30 +509,12 @@ def main(argv=None) -> int:
     if not swa_on:
         print("ALL_OK" if ok else "FAILED", flush=True)
         return 0 if ok else 1
-    b, h, kh, s, d, w = 2, 16, 1, 4096, 256, 2048
+    ok &= all(rec["err"]["ok"] for rec in time_shapes(rn, args.reps))
+    # the dK/dV kernel's head splits at the training shape
+    b, h, kh, s, d, w = TIME_SHAPES[0][1:7]
     q, k, v, dout = (rn(b, s, n, d).bfloat16().transpose(1, 2)
                      for n in (h, kh, kh, h))
     _, lse, o = swa_forward(q, k, v, w, with_lse=True)
-    pos = torch.arange(s, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        ql, kl.expand(b, h, s, d), vl.expand(b, h, s, d), attn_mask=band)
-    # five band products of 2 D flops per (query, visible key) pair,
-    # against reading q, k, v, o, dO, lse and writing dq, dk, dv once
-    visible = sum(min(i + 1, w) for i in range(s))
-    nbytes = 2.0 * (3 * b * h * s * d + 2 * b * kh * s * d) + 4.0 * b * h * s \
-        + 2.0 * (b * h * s * d + 2 * b * kh * s * d)
-    bound = max(10.0 * b * h * d * visible / BF16_FLOPS,
-                nbytes / HBM_BYTES_PER_S) * 1e3
-    print(json.dumps({
-        "swa_bwd_ms": _ms(lambda: swa_backward(q, k, v, o, lse, dout,
-                                               window=w), 3),
-        "sdpa_bwd_ms": _ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), dout, retain_graph=True), 3),
-        "swa_bwd_bound_ms": bound,
-        "swa_fwd_with_lse_ms": _ms(lambda: swa_forward(q, k, v, w, True), 3),
-        "device": torch.cuda.get_device_name(dev)}), flush=True)
     by_splits = {}
     chosen = swa_launcher.KV_SPLITS
     try:
@@ -413,8 +525,6 @@ def main(argv=None) -> int:
     finally:
         swa_launcher.KV_SPLITS = chosen
     print(json.dumps({"swa_bwd_ms_by_kv_splits": by_splits}), flush=True)
-    print(json.dumps({"swa_bwd_kernels_ms": profile_bwd(
-        lambda: swa_backward(q, k, v, o, lse, dout, window=w))}), flush=True)
     print("ALL_OK" if ok else "FAILED", flush=True)
     return 0 if ok else 1
 

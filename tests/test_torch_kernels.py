@@ -235,6 +235,94 @@ def test_swa_bwd_head_splits_cover_every_group_without_an_empty_split():
         assert splits * per >= group > (splits - 1) * per
 
 
+def _tile_constants(src: str, struct: str, env: dict) -> dict:
+    """The ``static constexpr`` members of ``struct`` in a csrc source,
+    evaluated in order at ``env`` (its base's members first): C's ``a ?
+    b : c`` read as Python's conditional."""
+    import re
+    body = re.search(r"struct " + struct + r"(?: : (\w+)<D>)? \{(.*?)\n\};",
+                     src, re.S)
+    if body.group(1):
+        env = _tile_constants(src, body.group(1), env)
+    env = dict(env)
+    for name, expr in re.findall(
+            r"static constexpr \w+ (\w+) = (.*?);", body.group(2), re.S):
+        expr = " ".join(expr.split()).replace("||", " or ")
+        cond = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+        if cond:
+            expr = f"({cond.group(2)}) if ({cond.group(1)}) else " \
+                   f"({cond.group(3)})"
+        env[name] = eval(expr, {}, env)
+    return env
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_swa_bwd_tiles_fit_a_block_and_match_the_kernels(d):
+    """The bf16 backward's tile rows and stages at each head dim, as
+    csrc/swa_bwd.cu's DqTile and KvTile set them, are what
+    swa.BWD_TILES mirrors (the CPU plan sums over those tiles), and both
+    kernels' shared memory as the structs count it (tiles, the dK/dV
+    kernel's fp32 P^T tile and lse and D rows, barriers, alignment slack)
+    fits a block's 232,448 bytes on an H100."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.swa import swa
+    src = (build.CSRC / "swa_bwd.cu").read_text()
+    env = {"D": d, "SMEM_MAX": int(re.search(
+        r"constexpr size_t SMEM_MAX = (\d+);", src).group(1))}
+    assert env["SMEM_MAX"] == 232448
+    dq = _tile_constants(src, "DqTile", env)
+    kv = _tile_constants(src, "KvTile", env)
+    assert (dq["BQ"], dq["BK"], dq["STAGES"]) == swa.BWD_TILES[d]["dq"]
+    assert (kv["BK"], kv["BQ"], kv["STAGES"]) == swa.BWD_TILES[d]["dkdv"]
+    assert max(dq["SMEM"], kv["SMEM"]) <= env["SMEM_MAX"]
+    # bf16 tiles, P^T, lse and D rows, barriers and the alignment slack
+    assert dq["SMEM"] == 2 * (dq["BQ"] + dq["STAGES"] * dq["BK"]) * d * 2 \
+        + 8 * (1 + 2 * dq["STAGES"]) + 1024
+    assert kv["SMEM"] == 2 * (kv["BK"] + kv["STAGES"] * kv["BQ"]) * d * 2 \
+        + (0 if kv["OWN"] else 64 * kv["BQ"] * 4) \
+        + 2 * kv["STAGES"] * kv["BQ"] * 4 + 8 * (1 + 2 * kv["STAGES"]) + 1024
+    # every tile starts on a 1,024-byte boundary (the 128-byte swizzle)
+    for name in ("G_OFF", "K_OFF", "V_OFF"):
+        assert dq[name] % 1024 == 0, name
+    for name in ("V_OFF", "Q_OFF", "G_OFF", "P_OFF"):
+        assert kv[name] % 1024 == 0, name
+    # each consumer owns 64 keys of its own (both sums) at D <= 64, and
+    # the same 64 keys as the other (one sum each, P^T passed between
+    # them) above, where dK and dV together take 128-256 registers
+    assert kv["OWN"] == (d <= 64) and kv["BK"] == (128 if kv["OWN"] else 64)
+
+
+def test_backward_check_reads_the_wgmma_kernels_in_their_namespace():
+    """ptxas names the bf16 kernels inside their namespace; the report
+    keys them by kernel and head dim as before."""
+    from repro_torch.launch.backward_check import ptxas_report
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19wgmma_"
+        "bwd16swa_bwd_dq_wgmmaILi256EEEv14CUtensorMap_stS1_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\nptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19wgmma_"
+        "bwd18swa_bwd_dkdv_wgmmaILi64EEEv14CUtensorMap_st' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+        "loads\nptxas info    : Used 168 registers, used 3 barriers\n")
+    assert ptxas_report(log) == {
+        "swa_bwd_dq_wgmma<256>": "168 registers, 0 bytes spill stores",
+        "swa_bwd_dkdv_wgmma<64>": "168 registers, 8 bytes spill stores"}
+
+
+def test_swa_bwd_variants_still_apply_to_the_sources():
+    """Every variant of ``python -m repro_torch.launch.swa_bwd_variants``
+    (PERF.md's design measurements of the bf16 backward) is a set of
+    substitutions the sources still hold once each, and changes them."""
+    from repro_torch.launch.swa_bwd_variants import VARIANTS, \
+        variant_sources
+    assert VARIANTS["as_is"] == []
+    for name in VARIANTS:
+        changed = variant_sources(name)
+        assert all(changed.values()) and (bool(changed) or name == "as_is")
+
+
 def test_swa_bwd_launcher_declares_the_c_entry():
     """build.SIGNATURES['swa_bwd'] declares as many arguments as the
     extern "C" swa_bwd_launch takes (ctypes would pass a shifted list

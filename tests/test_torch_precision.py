@@ -25,9 +25,10 @@ plain PyTorch on the CPU and held to the limits the card is held to.
   fp16 hi + lo: once-rounded p moves dQ over near-uniform attention.
 * swa_bwd's bf16 route (csrc/swa_bwd.cu) keeps S, dP, D and every sum in
   fp32 and rounds P and dS once to bf16 as the A operands of dV = P^T dO,
-  dQ = dS K and dK = dS^T Q, summed over 64-row tiles and, for dK and dV,
-  over a kv head's query heads in up to four fp32 partials; the gradients
-  are rounded to bf16 at the store. Against the float64 gradients it must
+  dQ = dS K and dK = dS^T Q, summed over its kernels' tiles (dQ over key
+  tiles of 64 rows, 32 at D = 256; dK and dV over 64-query tiles) and,
+  for dK and dV, over a kv head's query heads in up to four fp32
+  partials; the gradients are rounded to bf16 at the store. Against the float64 gradients it must
   stay within chip_smoke.py's GRAD_TOL and GRAD_RMS_TOL, and the RMS limit
   must reject a window one key short and a scale 10 % high.
 
@@ -44,7 +45,7 @@ import torch
 from chip_smoke import GRAD_RMS_TOL, GRAD_TOL, grad_rms_ratio, swa_excess
 from repro_torch.kernels.rf_map.ref import rf_weights
 from repro_torch.kernels.swa.ref import swa_forward_ref, swa_ref
-from repro_torch.kernels.swa.swa import kv_splits
+from repro_torch.kernels.swa.swa import BWD_TILES, kv_splits
 
 NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
 #: swa's fp16 plan scales max |v| of a (batch, kv head) into
@@ -401,18 +402,21 @@ def test_training_forward_splits_p_in_fp16_for_the_backward():
         assert (rel(dq, want[0]) <= 1.05 * rel(exact, want[0])) == lo
 
 
-def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64,
+def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None,
                       prefix=0):
     """swa_bwd's bf16 route in plain torch: fp32 S and dP of bf16
     operands, P = exp(S scale - lse) over the band (and the bidirectional
     ``prefix``), D = rowsum(dO o) from ``o`` as given (bf16, or the
     forward's fp32 output, which training passes),
     dS = P (dP - D); P and dS rounded once to bf16 for their products;
-    dQ summed over 64-key tiles, dK and dV over 64-query tiles and the
-    heads of each split of a kv head's query heads (kv_splits), the
-    splits' fp32 partials summed in order; gradients rounded to bf16.
-    ``scale`` plants a wrong softmax scale (default D^-0.5)."""
+    dQ summed over the dQ kernel's key tiles, dK and dV over the dK/dV
+    kernel's query tiles (BWD_TILES at this head dim) and the heads of
+    each split of a kv head's query heads (kv_splits), the splits' fp32
+    partials summed in order; gradients rounded to bf16. ``scale`` plants
+    a wrong softmax scale (default D^-0.5)."""
     b, h, s, d = q.shape
+    key_tile = BWD_TILES[d]["dq"][1]
+    query_tile = BWD_TILES[d]["dkdv"][1]
     kh = k.shape[1]
     g = h // kh
     scale = d ** -0.5 if scale is None else scale
@@ -425,15 +429,15 @@ def swa_bwd_bf16_plan(q, k, v, o, lse, dout, window, scale=None, block=64,
     ds = p * (gf @ vf.transpose(-1, -2) - dvec)
     p16, ds16 = _bf16(p), _bf16(ds)
     dq = torch.zeros(b, kh, g, s, d)
-    for k0 in range(0, s, block):
-        dq += ds16[..., k0:k0 + block] @ kf[..., k0:k0 + block, :]
+    for k0 in range(0, s, key_tile):
+        dq += ds16[..., k0:k0 + key_tile] @ kf[..., k0:k0 + key_tile, :]
     per = -(-g // kv_splits(g))
     dk, dv = torch.zeros(b, kh, s, d), torch.zeros(b, kh, s, d)
     for h0 in range(0, g, per):
         pk, pv = torch.zeros(b, kh, s, d), torch.zeros(b, kh, s, d)
         for hh in range(h0, min(h0 + per, g)):
-            for q0 in range(0, s, block):
-                rows = slice(q0, q0 + block)
+            for q0 in range(0, s, query_tile):
+                rows = slice(q0, q0 + query_tile)
                 pk += ds16[:, :, hh, rows].transpose(-1, -2) @ \
                     qf[:, :, hh, rows]
                 pv += p16[:, :, hh, rows].transpose(-1, -2) @ \
