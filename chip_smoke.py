@@ -108,14 +108,19 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
+# the card's peaks, the kernels' tolerances and the blocked reference
+# are the package's (kernels/limits.py)
+from repro_torch.common.config import H100
+from repro_torch.kernels.limits import REF_BLOCK_ROWS, TOL, blocked
+
 # H100 SXM peaks (NVIDIA data sheet, dense) used for the bounds: an
 # operation counts against the card's rate for the route the kernel takes,
 # fp32 outside the tensor cores, TF32 or bf16 on them; bytes against HBM3
 # bandwidth
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = H100.fp32_flops
+TF32_FLOPS = H100.tf32_flops
+BF16_FLOPS = H100.peak_flops
+HBM_BYTES_PER_S = H100.hbm_bw
 
 # widths of the paper's workloads (never cut) and the cut row counts
 TIMIT_D, RF_DIM, TIMIT_C = 440, 10_000, 147
@@ -129,7 +134,6 @@ SVD_CHUNK_ROWS = 128
 # how long the server process may take to print its address
 SERVER_START_S = 180
 CG_ITERS = 20
-REF_BLOCK_ROWS = 65_536        # row blocks of the full-size references
 DEVICE = "cuda"
 
 # serving RecurrentGemma-9B (published widths, 38 layers)
@@ -172,15 +176,6 @@ MODAL_TRAFFIC = (("paligemma-3b", 32, 512), ("whisper-medium", 4, 224))
 PREFIX_SHAPES = (("paligemma-3b", LM_MAX_BATCH, 256 + 512, 256),
                  ("whisper-medium", LM_MAX_BATCH, 1_500, 1_500))
 
-# tolerances of the JAX package's kernel tests (tests/test_kernels.py,
-# tests/test_extensions.py, tests/test_lru_loss_kernels.py): rtol, and
-# atol as a multiple of max|want| (rf_map's, swa's and lru_scan's atol is
-# absolute)
-TOL = {"gram": {"float32": 2e-5, "bfloat16": 2e-2},
-       "normal_matvec": {"float32": 3e-5, "bfloat16": 3e-2},
-       "rf_map": {"float32": 1e-5, "bfloat16": 2e-2},
-       "swa": {"float32": 2e-5, "bfloat16": 3e-2},
-       "lru_scan": {"float32": 1e-5, "bfloat16": 3e-2}}
 
 # swa at the main shape: with D = 256 and up to 2,048 visible keys an
 # output is a softmax average of v, typically sqrt(e / 2,048) ~ 0.04, so
@@ -217,7 +212,14 @@ KERNEL_META = {
 }
 # what each kernel computes on
 KERNEL_DESIGN = {
-    "gram": "fp32 CUDA cores, 128x128 register tiles",
+    "gram": "3xTF32 wgmma m64n128k8 (bf16: one TF32 product) on "
+            "TMA-fed 128-byte swizzled row panels, a producer warpgroup "
+            "(setmaxnreg 40; plain loads where rows are not 16-byte "
+            "aligned) and two consumer warpgroups of 64 output rows (232) "
+            "that transpose and split B into K-major core matrices and A "
+            "into registers; 128x128 upper tiles in 8x8 squares, staged "
+            "through shared memory and written with their mirror by rows; "
+            "fixed row slabs summed in order",
     "normal_matvec": "3xTF32 wgmma",
     "rf_map": "3xTF32 wgmma, persistent 128x160 tiles columns fastest, "
               "cos epilogue staged through shared memory",
@@ -366,7 +368,8 @@ def _randn(rng, shape, dtype):
 
 def check_test_shapes() -> None:
     """The shapes, dtypes and tolerances of the JAX package's kernel
-    tests, fp32 and bf16, plus the 130-row case the TPU wrapper pads."""
+    tests, fp32 and bf16, plus the 130-row case the TPU wrapper pads and
+    the tensor-core kernels' edges."""
     import torch
     from repro_torch.kernels.gram.ops import gram
     from repro_torch.kernels.gram.ref import gram_ref
@@ -374,14 +377,23 @@ def check_test_shapes() -> None:
     from repro_torch.kernels.normal_matvec.ref import normal_matvec_ref
     from repro_torch.kernels.rf_map.ops import rf_map_apply
     from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weights
+    from repro_torch.launch.gram_check import EDGE_SHAPES as GRAM_EDGE_SHAPES
+    from repro_torch.launch.gram_check import TEST_SHAPES as GRAM_TEST_SHAPES
     rng = np.random.default_rng(0)
     n_checked = 0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        for n, d in [(256, 128), (512, 256), (384, 200), (1000, 64),
-                     (128, 384)]:
+        # the JAX tests' shapes, then the tensor-core kernel's edges
+        # (gram_check.EDGE_SHAPES: rows not 16-byte aligned, ragged last
+        # tiles, one row, rows off the 32-row stage, many slabs), each
+        # also exactly symmetric and the same bits from a second launch
+        for n, d in GRAM_TEST_SHAPES + GRAM_EDGE_SHAPES:
             a = _randn(rng, (n, d), dt)
-            close("gram", gram(a), gram_ref(a), dn)
+            got = gram(a)
+            close("gram", got, gram_ref(a), dn)
+            if not torch.equal(got, got.T) or not torch.equal(got, gram(a)):
+                raise AssertionError(f"gram {dn} {(n, d)}: not exactly "
+                                     "symmetric or not the same bits twice")
             n_checked += 1
         # the JAX tests' shapes, then the tensor-core kernel's edges: a
         # partial column tile (D 161, 10,000), a partial row tile (130,
@@ -642,19 +654,6 @@ def _randn_on_card(shape, seed):
     return torch.randn(shape, generator=g, device=DEVICE)
 
 
-def blocked(fn, x, *args):
-    """``fn`` (a linear plain version: gram_ref, normal_matvec_ref) over
-    each REF_BLOCK_ROWS-row block of ``x``, the block results summed in
-    float64. The same function as ``fn(x, *args)``, but no fp32
-    accumulator runs over more than one block, so the reference's own
-    rounding stays far below the tolerance at a million rows."""
-    total = None
-    for lo in range(0, x.shape[0], REF_BLOCK_ROWS):
-        part = fn(x[lo:lo + REF_BLOCK_ROWS], *args).double()
-        total = part if total is None else total.add_(part)
-    return total
-
-
 def check_main_shapes() -> dict:
     """Each kernel at the shape the main path gives it, fp32: agreement
     with the plain version, and the times of kernel, plain version, one
@@ -673,8 +672,11 @@ def check_main_shapes() -> dict:
     n, d = SVD_ROWS, OCEAN_D
     a = _randn_on_card((n, d), 1)
     err = close("gram", gram(a), blocked(gram_ref, a), "float32")
-    bound, by = bound_ms(4.0 * (n * d + d * d), n * d * (d + 1.0))
+    # 3xTF32: three TF32 products for each product on the tensor cores
+    nbytes, flops = 4.0 * (n * d + d * d), n * d * (d + 1.0)
+    bound, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
     out["gram"] = {"shape": [n, d], "max_abs_err": err,
+                   "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
                    "kernel_ms": cuda_time_ms(lambda: gram(a)),
                    "plain_ms": cuda_time_ms(lambda: gram_ref(a)),
                    "library_ms": cuda_time_ms(lambda: torch.mm(a.T, a)),

@@ -145,12 +145,15 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
     """One card's peaks for the roofline: NVIDIA's data sheet for the H100
-    SXM (dense bf16 tensor-core rate, HBM3 bandwidth and capacity), the
-    rates the bounds of ``chip_smoke.py`` and ``PERF.md`` use. They assume
-    the full power limit; a card set lower runs slower under load. One
-    device: no interconnect term."""
+    SXM (dense tensor-core rates for bf16 and TF32, the fp32 CUDA-core
+    rate, HBM3 bandwidth and capacity), the rates the bounds of
+    ``chip_smoke.py``, the launch checks, kernel_bench and ``PERF.md`` use.
+    They assume the full power limit; a card set lower runs slower under
+    load. One device: no interconnect term."""
     card: str = "NVIDIA H100 80GB HBM3, 700 W"
     peak_flops: float = 989e12       # bf16 FLOP/s, dense tensor cores
+    tf32_flops: float = 495e12       # TF32 FLOP/s, dense tensor cores
+    fp32_flops: float = 67e12        # fp32 FLOP/s, CUDA cores
     hbm_bw: float = 3.35e12          # bytes/s
     hbm_bytes: float = 80e9          # device memory
 

@@ -432,8 +432,11 @@ class TorchBackend(base.ExecutionBackend):
             t0 = time.perf_counter()
             program, aot, keep = self._build(plan)
             compile_s = time.perf_counter() - t0
-        evicted = self._cache_put(sig, program) \
-            if sig is not None and keep else 0
+            # inserted before the lock is released: another caller of this
+            # signature waiting on it finds the program instead of building
+            # it again
+            evicted = self._cache_put(sig, program) \
+                if sig is not None and keep else 0
         return program, {"cached": False, "compile_s": compile_s,
                          "aot": aot, "evicted": evicted}
 

@@ -1,8 +1,8 @@
 // Hopper building blocks in raw PTX for the port's bf16 kernels (swa.cu,
-// swa_bwd.cu): TMA tile loads described by tensor maps, mbarriers, named
-// barriers, setmaxnreg, and the warpgroup products wgmma.mma_async
-// m64nNk16 with bf16 operands both from shared memory (SS), and with fp16
-// or bf16 operands, A from registers (RS).
+// swa_bwd.cu) and for gram.cu: TMA tile loads described by tensor maps,
+// mbarriers, named barriers, setmaxnreg, and the warpgroup products
+// wgmma.mma_async m64nNk16 with bf16 operands both from shared memory
+// (SS), and with fp16 or bf16 operands, A from registers (RS).
 //
 // Shared-memory operands are tiles that TMA lands with a 128-byte swizzle
 // (64-byte where a row holds 32 elements): rows of 64 (32) elements, 8-row
@@ -112,6 +112,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same for a 2-D map, coordinates (c0 innermost, c1)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -590,6 +601,30 @@ inline int encode_bsxd(CUtensorMap* map, const void* ptr, bool fp16,
       4, const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_MISSING + 1 + (int)r;
+}
+
+// The map of a row-major (rows, cols) matrix of fp32 (`fp32`) or bf16
+// elements at `ptr`, `ld` elements from one row to the next: boxes of
+// box_cols x box_rows elements (box_cols of 128 bytes), swizzled by 128
+// bytes as they land. Coordinates are (column, row); elements past either
+// edge read as zeros. The rows' byte stride and `ptr` must be multiples of
+// 16. Returns 0 or a status above.
+inline int encode_rows(CUtensorMap* map, const void* ptr, bool fp32,
+                       int64_t cols, int64_t rows, int64_t ld,
+                       uint32_t box_cols, uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ENCODE_MISSING;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (fp32 ? 4 : 2)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(
+      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_MISSING + 1 + (int)r;
 }

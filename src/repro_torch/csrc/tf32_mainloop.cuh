@@ -191,8 +191,9 @@ __device__ __forceinline__ void load_a(const T* a, int row, int t,
 
 // The products of one stage, A from register buffer B and B^T's hi and lo
 // parts at the given shared addresses, into `part`, started from zero
-// (small terms first); issued and committed, not waited for.
-template <int NT, bool kSplitA, int B>
+// (small terms first); issued and committed, not waited for. A B exact in
+// TF32 (kSplitB false: gram.cu's bf16 route) takes its hi part alone.
+template <int NT, bool kSplitA, int B, bool kSplitB = true>
 __device__ __forceinline__ void mma_stage(float (&part)[4 * NT],
                                           const uint32_t (&ah)[2][BK / 8][4],
                                           const uint32_t (&al)[2][BK / 8][4],
@@ -203,11 +204,12 @@ __device__ __forceinline__ void mma_stage(float (&part)[4 * NT],
   for (int ks = 0; ks < BK / 8; ++ks) {
     // an 8-deep step reads two core-matrix columns
     const uint64_t dh = kmajor_desc(hi_addr + ks * 256);
-    const uint64_t dl = kmajor_desc(lo_addr + ks * 256);
     if constexpr (kSplitA)
       tc::wgmma_tf32<NT>(part, al[B][ks], dh, ks > 0);
-    tc::wgmma_tf32<NT>(part, ah[B][ks], dl, kSplitA || ks > 0);
-    tc::wgmma_tf32<NT>(part, ah[B][ks], dh, 1);
+    if constexpr (kSplitB)
+      tc::wgmma_tf32<NT>(part, ah[B][ks], kmajor_desc(lo_addr + ks * 256),
+                         kSplitA || ks > 0);
+    tc::wgmma_tf32<NT>(part, ah[B][ks], dh, kSplitA || kSplitB || ks > 0);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }

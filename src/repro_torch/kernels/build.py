@@ -39,8 +39,8 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 SIGNATURES = {
     # entry: argtypes (dtype, pointers..., sizes..., [nt,] [slabs | scale],
-    # stream)
-    "gram": ("gram_launch", [_INT, _C, _C, _C, _I64, _I64, _INT, _C]),
+    # stream); gram's last size is a slab's rows
+    "gram": ("gram_launch", [_INT, _C, _C, _C, _I64, _I64, _I64, _C]),
     "normal_matvec": ("normal_matvec_launch",
                       [_INT, _C, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT,
                        _INT, _C]),
@@ -96,9 +96,9 @@ def nvcc() -> str:
 
 
 def _sources(name: str) -> list[Path]:
-    return [CSRC / f"{name}.cu", CSRC / "fp32_tiles.cuh",
-            CSRC / "tc_mma.cuh", CSRC / "wgmma_tf32.cuh",
-            CSRC / "tf32_mainloop.cuh", CSRC / "hopper_bf16.cuh"]
+    """``name``.cu and every header of ``csrc/``: an edited header rebuilds
+    every kernel, whichever of them include it."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
 
 
 def library_path(name: str) -> Path:

@@ -20,10 +20,12 @@ from repro_torch.analysis import locktrace
 FLOAT_INPUTS = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# output tiles of the fp32 kernels (csrc/fp32_tiles.cuh)
+# output tiles of the Gram kernel (csrc/gram.cu) and rows of
+# normal_matvec's X^T t tiles (csrc/tf32_mainloop.cuh BM)
 TILE = 128
-# a split reduction aims at this many blocks per SM (two resident at a
-# time, two waves), so the last wave's tail is a small share of the run
+# normal_matvec's split reduction aims at this many blocks per SM (two
+# resident at a time, two waves), so the last wave's tail is a small share
+# of the run
 BLOCKS_PER_SM = 4
 MIN_SLAB_ROWS = 256
 # no slab runs longer than this: one fp32 accumulator over n rows of a sum

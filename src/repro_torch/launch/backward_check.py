@@ -58,6 +58,7 @@ import time
 
 import torch
 
+from repro_torch.common.config import H100
 from repro_torch.common.device import explicit_device
 from repro_torch.kernels import build
 from repro_torch.kernels.lru_scan.lru_scan import CHUNK, WARPS
@@ -96,7 +97,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 RMS_TOL = {torch.bfloat16: 5e-3}
 # H100 SXM bf16 dense tensor-core and fp32 CUDA-core peaks and HBM3 rate,
 # for swa_bwd's bound
-BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = H100.peak_flops, \
+    H100.fp32_flops, H100.hbm_bw
 
 def _ms(fn, reps: int) -> float:
     fn()

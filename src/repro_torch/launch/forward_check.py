@@ -33,6 +33,7 @@ import time
 
 import torch
 
+from repro_torch.common.config import H100
 from repro_torch.common.device import explicit_device
 from repro_torch.kernels import build
 from repro_torch.kernels.swa.ops import swa_attention, swa_forward
@@ -42,7 +43,7 @@ LIMIT_RTOL = 2.0 ** -7     # chip_smoke.SWA_RTOL
 LIMIT_ATOL_RMS = 1e-2      # chip_smoke.SWA_ATOL_RMS
 FP32_TOL = 2e-5
 # H100 SXM bf16 dense tensor-core peak and HBM3 rate
-BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+BF16_FLOPS, HBM_BYTES_PER_S = H100.peak_flops, H100.hbm_bw
 HEAD_DIMS = (32, 64, 128, 256)
 
 

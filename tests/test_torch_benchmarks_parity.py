@@ -90,14 +90,15 @@ def test_kernel_bench_times_the_plain_versions_on_the_cpu():
 
 
 def test_kernel_bench_bounds_are_the_h100s():
-    """The bounds the card run prints: gram's operations on the fp32
-    CUDA cores, rf_map's on 3xTF32; normal_matvec (3xTF32), swa (bf16)
-    and lru_scan move more bytes at these shapes than they compute."""
+    """The bounds the card run prints: gram's and rf_map's operations on
+    3xTF32; normal_matvec (3xTF32), swa (bf16) and lru_scan move more
+    bytes at these shapes than they compute."""
     us = {n: kernel_bench.bound_us(n) for n in kernel_bench.SHAPES}
     assert {n: by for n, (_, by) in us.items()} == {
         "gram": "operations", "rf_map": "operations", "swa": "bytes",
         "normal_matvec": "bytes", "lru_scan": "bytes"}
-    assert us["gram"][0] == pytest.approx(8192 * 512 * 513 / 67e12 * 1e6)
+    assert us["gram"][0] == pytest.approx(
+        3 * 8192 * 512 * 513 / 495e12 * 1e6)
     assert us["lru_scan"][0] == pytest.approx(
         4.0 * (3 * 2 * 4096 * 4096 + 2 * 4096) / 3.35e12 * 1e6)
     assert us["swa"][0] == pytest.approx(2.0 * 4 * 8 * 2048 * 128

@@ -175,6 +175,79 @@ def test_cuda_swa_tile_edges(cuda, dtype, head_dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gram_edges(cuda, dtype):
+    """The tensor-core gram at the JAX tests' shapes and its edges
+    (launch/gram_check.py EDGE_SHAPES: d = 33 and 130, whose rows TMA
+    cannot describe; ragged last tiles up to d = 8,096; n = 1; rows off
+    the 32-row stage; many slabs): each within 2e-5 (fp32) or 2e-2 (bf16)
+    of the plain version, exactly symmetric, and the same bits from two
+    launches, one launch counted each."""
+    from repro_torch.launch.gram_check import EDGE_SHAPES, TEST_SHAPES, \
+        check_case
+    counters = launch_counters()
+    counters["gram"].reset()
+    g = torch.Generator(cuda).manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+    shapes = TEST_SHAPES + EDGE_SHAPES
+    bad = [rec for rec in (check_case(rn, dtype, n, d) for n, d in shapes)
+           if not rec["ok"]]
+    assert not bad, bad[:3]
+    assert counters["gram"].value == 2 * len(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, -32, 48])
+def test_cuda_gram_entry_refuses_a_slab_off_the_stage(cuda, rows):
+    """The C entry launches nothing for slab rows that are not a positive
+    multiple of the 32-row stage: a TMA stage loads 32 rows unmasked, so a
+    slab ending inside one would count the next slab's rows twice."""
+    from repro_torch.kernels import build, device
+    a = torch.ones(96, 64, device=cuda)
+    out = torch.full((64, 64), 7.0, device=cuda)
+    part = torch.zeros(4, 64, 64, device=cuda)
+    lib = build.load("gram")
+    with torch.cuda.device(a.device):
+        err = lib.gram_launch(0, a.data_ptr(), part.data_ptr(),
+                              out.data_ptr(), 96, 64, rows,
+                              device.stream_ptr(a))
+    torch.cuda.synchronize()
+    assert err == 1            # cudaErrorInvalidValue
+    assert bool((out == 7.0).all()) and not bool(part.any())
+
+
+@pytest.mark.cuda
+def test_cuda_gram_launches_from_a_fresh_thread(cuda):
+    """The first gram of a thread that has made no CUDA call yet (an
+    engine worker's): its launcher makes the device's context current
+    before the driver encodes the tensor map (the encoder refused the map
+    with CUDA_ERROR_INVALID_CONTEXT otherwise)."""
+    import threading
+    from repro_torch.kernels.gram.ref import gram_ref
+    a = torch.randn(300, 256, generator=torch.Generator().manual_seed(6))
+    a = a.to(cuda)
+    want = gram_ref(a)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["g"] = gram(a)
+            torch.cuda.synchronize()
+        except Exception as e:   # reported below, in the test's thread
+            out["error"] = e
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    assert "error" not in out, out.get("error")
+    torch.testing.assert_close(out["g"], want, rtol=2e-5,
+                               atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_rf_map_tile_edges(cuda, dtype, tol):

@@ -17,7 +17,7 @@ from repro.kernels.rf_map.ops import rf_map_apply as jax_rf_apply
 from repro.kernels.rf_map.ref import rf_weights as jax_rf_weights
 from repro_torch import interop
 from repro_torch.kernels import device, launch_counters
-from repro_torch.kernels.gram.gram import gram_slabs
+from repro_torch.kernels.gram.gram import gram_slabs, slab_rows
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.normal_matvec.normal_matvec import \
     column_tiles, normal_matvec_slabs
@@ -154,8 +154,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad, err):
 def test_split_reductions_only_when_tiles_cannot_fill_the_card():
     # d = 8,096: 2,080 upper tiles of 128 fill 132 SMs twice over
     assert gram_slabs(device.MAX_SLAB_ROWS, 8096, 132) == 1
-    # d = 440: 10 upper tiles -> split rows into fixed slabs
-    assert gram_slabs(1 << 20, 440, 132) == 53
+    # d = 440: 10 upper tiles, one gram block to an SM -> split rows into
+    # the slabs the fewest whole waves hold: 26 (two waves of 130 blocks)
+    # at 1,048,576 rows, 13 (one wave) at kernel_bench's 8,192 x 512
+    assert gram_slabs(1 << 20, 440, 132) == 26
+    assert gram_slabs(8192, 512, 132) == 13
     # normal_matvec's X^T t at d = 10,000, c = 147: 79 tiles of 128 rows
     # by one 152-column tile -> 7 slabs (4 per SM over 132 SMs)
     assert normal_matvec_slabs(1 << 18, 10_000, 147, 132) == 7
@@ -184,7 +187,13 @@ def test_no_slab_runs_longer_than_the_accuracy_cap():
     assert gram_slabs(1 << 20, 8096, 132) == 16
     assert normal_matvec_slabs(1 << 20, 10_000, 147, 132) == 16
     assert gram_slabs((1 << 20) + 1, 8096, 132) == 17
-    assert gram_slabs(1 << 20, 440, 132) == 53
+    assert gram_slabs(1 << 20, 440, 132) == 26
+    # a slab's rows are whole 32-row stages, the last slab the rest
+    for n, d in [(1 << 20, 440), ((1 << 20) + 1, 8096), (4133, 200)]:
+        slabs = gram_slabs(n, d, 132)
+        rows = slab_rows(n, slabs)
+        assert rows % 32 == 0 and rows <= device.MAX_SLAB_ROWS
+        assert (slabs - 1) * rows < n <= slabs * rows
 
 
 def test_interop_follows_jax_dtype_rules():
@@ -442,6 +451,91 @@ def test_forward_check_holds_swa_to_chip_smokes_limit():
                   b, s, s, prefix))
     assert {(n, b, s, w, p) for n, b, _, _, s, _, w, p in
             fc.MAIN_SHAPES} == want
+
+
+def test_gram_check_shapes_and_bounds():
+    """launch/gram_check.py times the five shapes the port gives gram
+    (gram_svd's A in fp32 and bf16, the fused chain's 65,536 rows,
+    kernel_bench's, a light tenant's) against the card's bound for the
+    dtype: 3xTF32 for fp32 (416.6 ms at 1,048,576 x 8,096), the bf16
+    tensor-core rate for bf16 (69.5 ms), the kernel's one TF32 product for
+    bf16 beside it; its sweep covers the JAX tests' shapes and the
+    kernel's edges; its check flags an asymmetric, a changed or an
+    inaccurate result."""
+    import chip_smoke
+    from repro_torch.launch import gram_check as gc
+    assert [(n, d) for _, n, d, _ in gc.TIME_SHAPES] == [
+        (chip_smoke.SVD_ROWS, chip_smoke.OCEAN_D), (65_536, 8_096),
+        (8_192, 512), (chip_smoke.SVD_ROWS, chip_smoke.OCEAN_D), (128, 32)]
+    assert gc.TOL is chip_smoke.TOL
+    full = gc.bound_ms(1_048_576, 8_096)
+    assert full["bound_ms"] == pytest.approx(416.6, abs=0.05)
+    assert full["bound_by"] == "operations"
+    assert full["bound_ms_fp32_cuda_cores"] == pytest.approx(1025.93,
+                                                             abs=0.05)
+    assert gc.bound_ms(65_536, 8_096)["bound_ms"] == pytest.approx(
+        26.0, abs=0.05)
+    assert gc.bound_ms(8_192, 512)["bound_ms"] * 1e3 == pytest.approx(
+        13.0, abs=0.05)
+    bf16 = gc.bound_ms(1_048_576, 8_096, torch.bfloat16)
+    assert bf16["bound_ms"] == pytest.approx(
+        1_048_576 * 8_096 * 8_097 / 989e12 * 1e3)
+    assert bf16["bound_ms"] == pytest.approx(69.5, abs=0.05)
+    assert bf16["bound_ms_one_tf32_product"] == pytest.approx(416.6 / 3,
+                                                              abs=0.05)
+    assert "bound_ms_one_tf32_product" not in full
+    edges = set(gc.EDGE_SHAPES)
+    assert {d for _, d in edges} >= {33, 130, 8_096}
+    assert {n for n, _ in edges} >= {1} and any(n % 32 for n, _ in edges)
+    a = torch.randn(40, 6, generator=torch.Generator().manual_seed(0))
+    want = (a.double().T @ a.double())
+    good = want.float()
+    assert gc.check(good, good.clone(), want, torch.float32)["ok"]
+    skew = good.clone()
+    skew[0, 1] += 1e-6 * float(good.abs().max())
+    assert not gc.check(skew, skew.clone(), want,
+                        torch.float32)["symmetric"]
+    assert not gc.check(good, skew, want, torch.float32)["same_bits"]
+    assert gc.check(good * 1.001, good * 1.001, want,
+                    torch.float32)["over_limit"] > 1.0
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117"
+           "gram_wgmma_kernelI13__nv_bfloat16EEv14CUtensorMap_stPKT_Pfllib'"
+           " for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, "
+           "0 bytes spill loads\nptxas info    : Used 168 registers\n")
+    assert gc.ptxas_report(log) == {
+        "gram_wgmma_kernel<bf16>": "168 registers, 0 bytes spill stores"}
+
+
+def test_card_checks_read_one_set_of_peaks_and_limits():
+    """chip_smoke.py and the launch checks take the H100's peaks from
+    config.H100 and the kernels' tolerances and blocked reference from
+    kernels/limits.py; the blocked reference splits the rows into
+    REF_BLOCK_ROWS blocks and sums them in float64."""
+    import chip_smoke
+    from repro_torch.common.config import H100
+    from repro_torch.kernels import limits
+    from repro_torch.launch import backward_check, forward_check
+    assert (chip_smoke.FP32_FLOPS, chip_smoke.TF32_FLOPS,
+            chip_smoke.BF16_FLOPS, chip_smoke.HBM_BYTES_PER_S) == \
+        (67e12, 495e12, 989e12, 3.35e12)
+    assert (H100.fp32_flops, H100.tf32_flops, H100.peak_flops,
+            H100.hbm_bw) == (67e12, 495e12, 989e12, 3.35e12)
+    assert (forward_check.BF16_FLOPS, backward_check.FP32_FLOPS,
+            backward_check.HBM_BYTES_PER_S) == (989e12, 67e12, 3.35e12)
+    assert chip_smoke.TOL is limits.TOL
+    assert chip_smoke.blocked is limits.blocked
+    a = torch.randn(limits.REF_BLOCK_ROWS + 70, 3,
+                    generator=torch.Generator().manual_seed(1))
+    seen = []
+
+    def colsum(x):
+        seen.append(x.shape[0])
+        return x.sum(0)
+    total = limits.blocked(colsum, a)
+    assert seen == [limits.REF_BLOCK_ROWS, 70]
+    assert total.dtype == torch.float64
+    torch.testing.assert_close(total, a.double().sum(0), rtol=1e-5,
+                               atol=1e-3)
 
 
 def test_forward_check_names_each_instantiation():

@@ -98,9 +98,11 @@ def test_the_roofline_takes_the_h100_and_no_tpu_constant():
     term."""
     assert (H100.peak_flops, H100.hbm_bw, H100.hbm_bytes) == \
         (989e12, 3.35e12, 80e9)
+    assert (H100.tf32_flops, H100.fp32_flops) == (495e12, 67e12)
     assert H100.card == "NVIDIA H100 80GB HBM3, 700 W"
     fields = {f.name for f in HardwareSpec.__dataclass_fields__.values()}
-    assert fields == {"card", "peak_flops", "hbm_bw", "hbm_bytes"}
+    assert fields == {"card", "peak_flops", "tf32_flops", "fp32_flops",
+                      "hbm_bw", "hbm_bytes"}
     cfg = get_config("qwen3-4b")
     r = rl.build_report("qwen3-4b", SHAPES["decode_32k"], cfg, 3.35e12)
     assert r.collective_s == 0.0 and r.chips == 1

@@ -6,6 +6,11 @@ plain PyTorch on the CPU and held to the limits the card is held to.
   with its 13 low mantissa bits cleared, and a b ~ a_hi b_hi + a_hi b_lo
   + a_lo b_hi. It must stay within the 3e-5 rule against the float64
   product, where one-pass TF32 must not.
+* gram (csrc/gram.cu) forms A^T A the same way, over slabs of rows
+  (kernels/gram/gram.py gram_slabs), each 32-row stage's products added
+  into an fp32 sum; the slabs' sums added in order. It must stay within
+  the JAX tests' 2e-5 at their five shapes and over one slab of
+  65,536 rows, where one-pass TF32 must not; a bf16 A within 2e-2.
 * rf_map (csrc/rf_map.cu) forms X W the same way (two products for a bf16
   X), then adds b, takes cos and scales by sqrt(2/D). It must stay within
   the JAX tests' 1e-5 of the float64 map at their four shapes, where
@@ -43,9 +48,11 @@ import pytest
 import torch
 
 from chip_smoke import GRAD_RMS_TOL, GRAD_TOL, grad_rms_ratio, swa_excess
+from repro_torch.kernels.limits import TOL
 from repro_torch.kernels.rf_map.ref import rf_weights
 from repro_torch.kernels.swa.ref import swa_forward_ref, swa_ref
 from repro_torch.kernels.swa.swa import BWD_TILES, kv_splits
+from repro_torch.launch.gram_check import TEST_SHAPES as GRAM_TEST_SHAPES
 
 NM_TOL = 3e-5          # chip_smoke.TOL["normal_matvec"]["float32"]
 #: swa's fp16 plan scales max |v| of a (batch, kv head) into
@@ -119,6 +126,78 @@ def test_normal_matvec_3xtf32_meets_the_rule_at_a_cg_slice():
     del xd
     assert within_rule(nm_3xtf32(x, w, False), want)
     assert not within_rule(nm_tf32(x, w), want)
+
+
+GRAM_TOL = {torch.float32: TOL["gram"]["float32"],
+            torch.bfloat16: TOL["gram"]["bfloat16"]}
+
+
+def gram_plan(a: torch.Tensor, rows: int, exact: bool = False,
+              one_pass: bool = False) -> torch.Tensor:
+    """A^T A as csrc/gram.cu forms it: each slab of ``rows`` rows walked
+    in 32-row stages, a stage's products (3xTF32, small terms first; one
+    product for a bf16 A, exact in TF32; one TF32 product with
+    ``one_pass``) summed from zero and then added into the slab's fp32
+    sum, the slabs' sums added in slab order in fp32."""
+    total = torch.zeros(a.shape[1], a.shape[1])
+    for lo in range(0, a.shape[0], rows):
+        acc = torch.zeros_like(total)
+        for k in range(lo, min(lo + rows, a.shape[0]), 32):
+            x = a[k:min(k + 32, lo + rows)]
+            if exact or one_pass:
+                h = tf32(x) if one_pass else x
+                acc += h.T @ h
+            else:
+                hi, low = split(x)
+                acc += low.T @ hi + hi.T @ low + hi.T @ hi
+        total += acc
+    return total
+
+
+def within_gram_rule(got: torch.Tensor, want: torch.Tensor, tol) -> bool:
+    """chip_smoke.close's rule at gram's tolerance."""
+    err = (got.double() - want).abs()
+    return bool((err <= tol * (want.abs().max() + want.abs())).all())
+
+
+def _gram_case(n, d, dtype, seed=0):
+    """A standard normal (rounded to ``dtype``), the kernel's slab rows
+    for it on 132 SMs, and the float64 Gram of those values."""
+    from repro_torch.kernels.gram.gram import gram_slabs, slab_rows
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    a = a.to(dtype).float()
+    ad = a.double()
+    return a, slab_rows(n, gram_slabs(n, d, 132)), ad.T @ ad
+
+
+@pytest.mark.parametrize("n,d", GRAM_TEST_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_plan_meets_the_rule_where_one_pass_tf32_misses(n, d, dtype):
+    """3xTF32 folded into fp32 every 32-row stage, over the kernel's
+    slabs, meets 2e-5 at the JAX tests' shapes; one-pass TF32 misses it;
+    a bf16 A takes one product a stage and meets 2e-2."""
+    a, rows, want = _gram_case(n, d, dtype)
+    if dtype == torch.bfloat16:
+        assert within_gram_rule(gram_plan(a, rows, exact=True), want,
+                                GRAM_TOL[dtype])
+        return
+    assert within_gram_rule(gram_plan(a, rows), want, GRAM_TOL[dtype])
+    assert not within_gram_rule(gram_plan(a, rows, one_pass=True), want,
+                                GRAM_TOL[dtype])
+
+
+def test_gram_plan_meets_the_rule_over_the_longest_slab():
+    """One slab of device.MAX_SLAB_ROWS rows (the longest reduction the
+    kernel runs: every slab of gram_svd's 1,048,576 rows, and the fused
+    chain's 65,536 in one), whose diagonal grows to ~65,536: the per-stage
+    fp32 fold keeps 2e-5; one-pass TF32 misses it."""
+    from repro_torch.kernels import device
+    a, _, want = _gram_case(device.MAX_SLAB_ROWS, 128, torch.float32, 1)
+    rows, tol = device.MAX_SLAB_ROWS, GRAM_TOL[torch.float32]
+    assert within_gram_rule(gram_plan(a, rows), want, tol)
+    assert not within_gram_rule(gram_plan(a, rows, one_pass=True), want,
+                                tol)
 
 
 RF_TOL = 1e-5          # chip_smoke.TOL["rf_map"]["float32"], absolute

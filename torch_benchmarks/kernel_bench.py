@@ -41,11 +41,10 @@ from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weights
 from repro_torch.kernels.swa.ops import swa_attention
 from repro_torch.kernels.swa.ref import swa_ref
 
-# the H100 SXM's dense peaks (NVIDIA data sheet) for the routes the
-# kernels take: fp32 on the CUDA cores (gram), TF32 on the tensor cores
-# thrice for 3xTF32 (normal_matvec, rf_map), bf16 (swa) as H100.peak_flops
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
+# the H100 SXM's dense peaks (NVIDIA data sheet, repro_torch's H100) for
+# the routes the kernels take: TF32 on the tensor cores thrice for 3xTF32
+# (gram, normal_matvec, rf_map), bf16 (swa), fp32 on the CUDA cores
+# (lru_scan)
 REPS = 20
 
 SHAPES = {
@@ -161,12 +160,12 @@ def bound_us(name: str) -> tuple[float, str]:
     bench shape: (microseconds, "bytes" or "operations")."""
     if name == "gram":
         n, d = SHAPES[name]
-        nbytes, flops, peak = 4.0 * (n * d + d * d), n * d * (d + 1.0), \
-            FP32_FLOPS
+        nbytes = 4.0 * (n * d + d * d)
+        flops, peak = 3 * n * d * (d + 1.0), H100.tf32_flops
     elif name == "rf_map":
         n, d, dd = SHAPES[name]
         nbytes = 4.0 * (n * d + d * dd + dd + n * dd)
-        flops, peak = 3 * 2.0 * n * d * dd, TF32_FLOPS
+        flops, peak = 3 * 2.0 * n * d * dd, H100.tf32_flops
     elif name == "swa":
         b, h, s, d, window = SHAPES[name]
         visible = sum(min(i + 1, window) for i in range(s))
@@ -176,11 +175,11 @@ def bound_us(name: str) -> tuple[float, str]:
     elif name == "normal_matvec":
         n, d, c = SHAPES[name]
         nbytes = 4.0 * (n * d + 2 * d * c)
-        flops, peak = 3 * 4.0 * n * d * c, TF32_FLOPS
+        flops, peak = 3 * 4.0 * n * d * c, H100.tf32_flops
     else:
         b, s, w = SHAPES[name]
         nbytes, flops, peak = 4.0 * (3 * b * s * w + b * w), \
-            2.0 * b * s * w, FP32_FLOPS
+            2.0 * b * s * w, H100.fp32_flops
     t_bytes, t_ops = nbytes / H100.hbm_bw, flops / peak
     return (t_ops * 1e6, "operations") if t_ops >= t_bytes else \
         (t_bytes * 1e6, "bytes")
