@@ -99,6 +99,9 @@ LOCK_RANKS: dict[str, int] = {
     "costmodel.compile": 43,
     "costmodel.cache": 44,
     "costmodel.qos": 45,
+    # the span recorder (common/spans.py) is a leaf: taken when a span
+    # closes, under whatever its site holds, never around another lock
+    "spans.recorder": 46,
     # the kernels' host locks are leaves: the first-use build (under the
     # capture lock when warmup builds), the CPU vector-math settle and
     # the launch counters (under a program's lock on replay)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import spans
 from repro_torch.core.backends import base
 from repro_torch.core.backends.base import REPLICATED, ROWBLOCK
 from repro_torch.core.libraries import mllib
@@ -134,31 +135,35 @@ def _lanczos_gram(matvec, d: int, k: int, m: int, q0: np.ndarray):
     b_prev = 0.0
     matvecs = 0
     for j in range(m):
-        # iteration boundary: a lighter tenant far behind on fair share
-        # may briefly take the host here (core/qos cooperative
-        # preemption; no-op unless the engine installed a hook)
-        base.yield_check()
-        Q[:, j] = q
-        w = matvec(q)
-        matvecs += 1
-        a = float(q @ w)
-        alpha[j] = a
-        w = w - a * q - b_prev * q_prev
-        for _ in range(2):
-            w = w - Q[:, : j + 1] @ (Q[:, : j + 1].T @ w)
-        b = float(np.linalg.norm(w))
-        beta[j] = b
-        if b < 1e-12:
-            m = j + 1
-            Q, alpha, beta = Q[:, :m], alpha[:m], beta[:m]
-            break
-        q_prev, b_prev, q = q, b, w / b
-    T = np.diag(alpha) + np.diag(beta[: m - 1], 1) + \
-        np.diag(beta[: m - 1], -1)
-    evals, evecs = np.linalg.eigh(T)
-    order = np.argsort(evals)[::-1][:k]
-    sigma = np.sqrt(np.maximum(evals[order], 0.0))
-    V = Q @ evecs[:, order]
+        with spans.span("lanczos.step"):
+            # iteration boundary: a lighter tenant far behind on fair
+            # share may briefly take the host here (core/qos cooperative
+            # preemption; no-op unless the engine installed a hook)
+            base.yield_check()
+            Q[:, j] = q
+            with spans.span("lanczos.matvec"):
+                w = matvec(q)
+            matvecs += 1
+            with spans.span("lanczos.reorth"):
+                a = float(q @ w)
+                alpha[j] = a
+                w = w - a * q - b_prev * q_prev
+                for _ in range(2):
+                    w = w - Q[:, : j + 1] @ (Q[:, : j + 1].T @ w)
+                b = float(np.linalg.norm(w))
+                beta[j] = b
+            if b < 1e-12:
+                m = j + 1
+                Q, alpha, beta = Q[:, :m], alpha[:m], beta[:m]
+                break
+            q_prev, b_prev, q = q, b, w / b
+    with spans.span("lanczos.ritz"):
+        T = np.diag(alpha) + np.diag(beta[: m - 1], 1) + \
+            np.diag(beta[: m - 1], -1)
+        evals, evecs = np.linalg.eigh(T)
+        order = np.argsort(evals)[::-1][:k]
+        sigma = np.sqrt(np.maximum(evals[order], 0.0))
+        V = Q @ evecs[:, order]
     return sigma, V, int(m), matvecs
 
 

@@ -91,6 +91,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import locktrace
+from repro_torch.common import spans
 from repro_torch.core import compilecache
 from repro_torch.core.backends import base
 from repro_torch.core.backends.base import REPLICATED, ROWBLOCK
@@ -725,11 +726,13 @@ def _truncated_svd(A, k: int, oversample: int = 32, max_iters: int = 0,
         # preemption boundary for the reverse-communication driver
         base.yield_check()
         qd = _from_host(q, x)
+        spans.count("syncs")
         return (x.T @ (x @ qd)).double().cpu().numpy()
 
     sigma, V, iters, matvecs = _lanczos_gram(matvec, d, k, m, q0)
-    v_dev = _from_host(V, x)
-    U = (x @ v_dev) / torch.clamp(_from_host(sigma, x), min=1e-30)
+    with spans.span("lanczos.u"):
+        v_dev = _from_host(V, x)
+        U = (x @ v_dev) / torch.clamp(_from_host(sigma, x), min=1e-30)
     return {"U": U, "S": torch.from_numpy(sigma.astype(np.float32)),
             "V": v_dev, "lanczos_iters": iters, "matvecs": matvecs}
 
@@ -737,13 +740,16 @@ def _truncated_svd(A, k: int, oversample: int = 32, max_iters: int = 0,
 @register("elemental", "gram_svd", fusible=True, accepts=_DENSE)
 def _gram_svd(A, k: int, use_pallas: bool = False):
     x = A
-    g = gram_ops.gram(x.contiguous())
-    evals, evecs = torch.linalg.eigh(g)
-    order = torch.flip(torch.argsort(evals), dims=(0,))[:k]
-    lam = torch.clamp(evals[order], min=0.0)
-    sigma = torch.sqrt(lam)
-    v = evecs[:, order]
-    u = (x @ v.to(x.dtype)) / torch.clamp(sigma.to(x.dtype), min=1e-30)
+    with spans.span("gram_svd.gram"):
+        g = gram_ops.gram(x.contiguous())
+    with spans.span("gram_svd.eigh"):
+        evals, evecs = torch.linalg.eigh(g)
+        order = torch.flip(torch.argsort(evals), dims=(0,))[:k]
+        lam = torch.clamp(evals[order], min=0.0)
+        sigma = torch.sqrt(lam)
+        v = evecs[:, order]
+    with spans.span("gram_svd.u"):
+        u = (x @ v.to(x.dtype)) / torch.clamp(sigma.to(x.dtype), min=1e-30)
     return {"U": u, "S": sigma.float(), "V": v.float()}
 
 
@@ -791,34 +797,44 @@ def _cg_step(x, lam_n, state):
     return w, r, p, rs_new
 
 
+def _cg_residual(rs, floor) -> float:
+    """The largest relative residual on the host: the solve's one wait on
+    the device an iteration (the ``syncs`` counter)."""
+    with spans.span("cg.sync"):
+        spans.count("syncs")
+        return float(torch.max(torch.sqrt(rs) / floor))
+
+
 @register("skylark", "cg_solve", accepts=_DENSE)
 def _cg_solve(X, Y, lam: float = 1e-5, rf_dim: int = 0,
               bandwidth: float = 1.0, max_iters: int = 200,
               tol: float = 1e-8, seed: int = 0, use_pallas: bool = False):
     x = X.contiguous()
     if rf_dim:
-        x = rf_ops.rf_map(x, rf_dim, bandwidth=bandwidth, seed=seed)
+        with spans.span("cg.expand"):
+            x = rf_ops.rf_map(x, rf_dim, bandwidth=bandwidth, seed=seed)
     x, y = _promoted(x, Y)
     n, d = x.shape
-    lam_n = torch.tensor(n * lam, dtype=x.dtype, device=x.device)
-
-    b = x.T @ y                                  # (d, c) rhs
-    b_norm = torch.linalg.norm(b, dim=0)
-    w = torch.zeros_like(b)
-    r = b
-    p = r
-    rs = torch.sum(r * r, dim=0)
+    with spans.span("cg.rhs"):
+        lam_n = torch.tensor(n * lam, dtype=x.dtype, device=x.device)
+        b = x.T @ y                                  # (d, c) rhs
+        b_norm = torch.linalg.norm(b, dim=0)
+        w = torch.zeros_like(b)
+        r = b
+        p = r
+        rs = torch.sum(r * r, dim=0)
+        floor = torch.clamp(b_norm, min=1e-30)
+        rel = _cg_residual(rs, floor)
 
     iters = 0
-    floor = torch.clamp(b_norm, min=1e-30)
-    rel = float(torch.max(torch.sqrt(rs) / floor))
     history = [rel]
     state = (w, r, p, rs)
     while iters < max_iters and rel > tol:
-        base.yield_check()          # QoS iteration boundary
-        state = _cg_step(x, lam_n, state)
-        iters += 1
-        rel = float(torch.max(torch.sqrt(state[3]) / floor))
+        with spans.span("cg.iter"):
+            base.yield_check()          # QoS iteration boundary
+            state = _cg_step(x, lam_n, state)
+            iters += 1
+            rel = _cg_residual(state[3], floor)
         history.append(rel)
 
     return {

@@ -1900,6 +1900,7 @@ class AlchemistEngine:
             values = self._execute_step(backend, impl, cmd, sess, meta)
             elapsed = time.perf_counter() - t0
             if task is not None:
+                task.executed_at = meta.pop("executed_at")
                 with self._state_lock:
                     self._task_meta[task.id] = meta
             if info is not None:
@@ -1935,6 +1936,7 @@ class AlchemistEngine:
             view = SessionView(self, sess)
             values = impl.fn(view, **cmd.args)
             self._sync()
+            meta["executed_at"] = time.perf_counter()
             return values
         kwargs = {}
         inputs: dict[str, Any] = {}
@@ -1967,9 +1969,11 @@ class AlchemistEngine:
             if crops is not None:
                 outs_list = self._crop_outputs(backend, outs_list, crops)
             self._sync()
+            meta["executed_at"] = time.perf_counter()
             return self._bind_outputs(backend, outs_list[0], cmd)
         outs = impl.fn(**kwargs)
         self._sync()
+        meta["executed_at"] = time.perf_counter()
         return self._bind_outputs(backend, outs, cmd)
 
     def _sync(self) -> None:

@@ -46,6 +46,7 @@ from typing import TYPE_CHECKING, Any, Optional, Union
 
 import numpy as np
 
+from repro_torch.common import spans
 from repro_torch.core import protocol
 from repro_torch.core.handles import MatrixHandle
 from repro_torch.core.libraries import spec as specs
@@ -331,11 +332,23 @@ class AlMatrix:
 
     # ---- materialization --------------------------------------------------
     def to_row_matrix(self, num_partitions: int = 8) -> "RowMatrix":
-        """Materialize on the client (streams back chunk-by-chunk)."""
-        return self.ac.fetch(self.handle, num_partitions)
+        """Materialize on the client (streams back chunk-by-chunk). Under
+        a ``torch.profiler`` the fetch's spans are recorded for the job
+        that produced this matrix (``common/spans.py``)."""
+        with spans.client_job(self._producer()):
+            return self.ac.fetch(self.handle, num_partitions)
 
     def to_numpy(self) -> np.ndarray:
-        return self.to_row_matrix().collect()
+        with spans.client_job(self._producer()):
+            rm = self.to_row_matrix()
+            with spans.span("fetch.collect") as sp:
+                out = rm.collect()
+                sp.set(bytes=out.nbytes)
+            return out
+
+    def _producer(self) -> int:
+        """The task that produced this matrix (0 for an upload)."""
+        return self._future.task if self._future is not None else 0
 
     def free(self) -> None:
         """Release this proxy's reference on the engine (forces a

@@ -50,6 +50,7 @@ import time
 from typing import Any, Callable, Iterable, Optional
 
 from repro_torch.analysis import locktrace, statemachine
+from repro_torch.common import spans
 from repro_torch.core.qos.policy import FifoReadyQueue
 
 QUEUED = "QUEUED"
@@ -76,6 +77,10 @@ class Task:
     failure must propagate here (deferred-handle edges only).
     ``wait_s``/``exec_s`` split the task's latency into time spent queued
     behind dependencies and worker availability vs time actually running.
+    ``traced`` says whether a ``torch.profiler`` recorded on the thread
+    that submitted it (``submit_tid``): its spans are then recorded
+    (``common/spans.py``) from the stamps below, ``executed_at`` being
+    where the routine's work ended and the hand-back began.
     """
     id: int
     session: int
@@ -98,7 +103,10 @@ class Task:
     dependents: list[int] = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
     started_at: float = 0.0
+    executed_at: float = 0.0
     finished_at: float = 0.0
+    traced: bool = False
+    submit_tid: int = 0
     wait_s: float = 0.0
     exec_s: float = 0.0
     result: Any = None
@@ -167,6 +175,7 @@ class TaskScheduler:
         """
         reads, writes = set(reads), set(writes)
         reads -= writes
+        traced = spans.profiling()
         with self._cv:
             if self._shutdown:
                 raise RuntimeError("scheduler is shut down")
@@ -175,7 +184,8 @@ class TaskScheduler:
                         data_deps=tuple(dict.fromkeys(data_deps)),
                         reads=tuple(reads), writes=tuple(writes),
                         payload=payload, price=float(price),
-                        submitted_at=time.perf_counter())
+                        submitted_at=time.perf_counter(), traced=traced,
+                        submit_tid=spans.thread_id() if traced else 0)
             deps: set[int] = set()
 
             def live(tid: Optional[int]) -> bool:
@@ -536,6 +546,8 @@ class TaskScheduler:
                              f"upstream task #{failed[0]} failed: "
                              f"{failed[1]}")
                 continue
+            execute = spans.enter_job(task.id, task.traced,
+                                      task.started_at)
             try:
                 result = task.fn(task)
             except TaskFailure as e:
@@ -545,6 +557,7 @@ class TaskScheduler:
                              f"{type(e).__name__}: {e}")
             else:
                 self._finish(task, DONE, result, "")
+            spans.leave_job(execute, task)
 
     def _finish(self, task: Task, state: str, result: Any,
                 error: str, worker: bool = True) -> None:

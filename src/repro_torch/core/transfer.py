@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.common import spans
 from repro_torch.core import cache as caching, layout_tag
 from repro_torch.core.costmodel import (
     TransferRecord,
@@ -433,19 +434,24 @@ def to_client(engine: AlchemistEngine, handle: MatrixHandle,
     blocks: list[Optional[np.ndarray]] = [None] * num_partitions
     sizes: list[int] = []
     total = 0
-    for idx, (lo, hi) in enumerate(plan):
-        block = tensor_to_numpy(arr[lo:hi])     # one chunk crosses
-        p = bisect.bisect_right(pstarts, lo) - 1
-        if blocks[p] is None:
-            blocks[p] = np.empty((psizes[p],) + tuple(arr.shape[1:]),
-                                 dtype=block.dtype)
-        blocks[p][lo - pstarts[p]: hi - pstarts[p]] = block
-        total += block.nbytes
-        sizes.append(block.nbytes)
-        engine.transfer_log.record(
-            block.nbytes, "to_client", session=sess,
-            chunk_index=idx, num_chunks=len(plan),
-            pipelined=(idx < len(plan) - 1))
+    with spans.span("fetch", bytes=arr.numel() * arr.element_size(),
+                    chunks=len(plan)):
+        for idx, (lo, hi) in enumerate(plan):
+            with spans.span("fetch.copy") as sp:
+                block = tensor_to_numpy(arr[lo:hi])     # one chunk crosses
+                sp.set(bytes=block.nbytes, pinned=False)
+            p = bisect.bisect_right(pstarts, lo) - 1
+            with spans.span("fetch.place", bytes=block.nbytes):
+                if blocks[p] is None:
+                    blocks[p] = np.empty((psizes[p],) + tuple(arr.shape[1:]),
+                                         dtype=block.dtype)
+                blocks[p][lo - pstarts[p]: hi - pstarts[p]] = block
+            total += block.nbytes
+            sizes.append(block.nbytes)
+            engine.transfer_log.record(
+                block.nbytes, "to_client", session=sess,
+                chunk_index=idx, num_chunks=len(plan),
+                pipelined=(idx < len(plan) - 1))
     rec = _aggregate_record(
         engine.transfer_log, total, "to_client", sess, sizes)
     return RowMatrix.from_blocks(blocks), rec

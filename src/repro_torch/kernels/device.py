@@ -16,6 +16,7 @@ import threading
 import torch
 
 from repro_torch.analysis import locktrace
+from repro_torch.common import spans
 
 FLOAT_INPUTS = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -222,3 +223,14 @@ def capturing_launches():
         yield _captured.counts
     finally:
         _captured.counts = None
+
+
+def kernel_span(name: str, *operands: torch.Tensor):
+    """The ``kernel.<name>`` span of one wrapper call on this thread, with
+    its operands' shapes and itemsizes (``common/spans.py``); nothing
+    while the thread does not record, or captures a CUDA graph (a
+    captured kernel is not launched)."""
+    if not spans.recording() or \
+            getattr(_captured, "counts", None) is not None:
+        return spans.OFF
+    return spans.span("kernel." + name, *operands)

@@ -15,9 +15,10 @@ def gram(a: torch.Tensor) -> torch.Tensor:
     """G = A^T A (fp32 accumulation) of a contiguous (n, d) fp32/bf16
     matrix."""
     device.require_matrix("gram", "a", a)
-    if device.on_cpu("gram", a):
-        return gram_ref(a)
-    device.require_nonempty("gram", n=a.shape[0], d=a.shape[1])
-    g = gram_cuda(a)
-    LAUNCHES.add()
-    return g
+    with device.kernel_span("gram", a):
+        if device.on_cpu("gram", a):
+            return gram_ref(a)
+        device.require_nonempty("gram", n=a.shape[0], d=a.shape[1])
+        g = gram_cuda(a)
+        LAUNCHES.add()
+        return g

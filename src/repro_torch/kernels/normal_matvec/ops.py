@@ -21,10 +21,11 @@ def normal_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.shape[0] != x.shape[1]:
         raise ValueError(f"normal_matvec: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not chain")
-    if device.on_cpu("normal_matvec", x, w):
-        return normal_matvec_ref(x, w)
-    device.require_nonempty("normal_matvec", n=x.shape[0], d=x.shape[1],
-                            c=w.shape[1])
-    out = normal_matvec_cuda(x, w)
-    LAUNCHES.add()
-    return out
+    with device.kernel_span("normal_matvec", x, w):
+        if device.on_cpu("normal_matvec", x, w):
+            return normal_matvec_ref(x, w)
+        device.require_nonempty("normal_matvec", n=x.shape[0],
+                                d=x.shape[1], c=w.shape[1])
+        out = normal_matvec_cuda(x, w)
+        LAUNCHES.add()
+        return out

@@ -33,10 +33,11 @@ def rf_map_apply(x: torch.Tensor, w: torch.Tensor,
             tuple(b.shape) != (w.shape[1],) or not b.is_contiguous():
         raise ValueError(f"rf_map: b must be a contiguous float32 "
                          f"({w.shape[1]},) tensor")
-    if device.on_cpu("rf_map", x, w, b):
-        return rf_map_ref(x, w, b)
-    device.require_nonempty("rf_map", n=x.shape[0], d=x.shape[1],
-                            D=w.shape[1])
-    z = rf_map_cuda(x, w, b)
-    LAUNCHES.add()
-    return z
+    with device.kernel_span("rf_map", x, w, b):
+        if device.on_cpu("rf_map", x, w, b):
+            return rf_map_ref(x, w, b)
+        device.require_nonempty("rf_map", n=x.shape[0], d=x.shape[1],
+                                D=w.shape[1])
+        z = rf_map_cuda(x, w, b)
+        LAUNCHES.add()
+        return z

@@ -4,6 +4,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.common import spans
+
 
 def rf_weights(d: int, rf_dim: int, bandwidth: float, seed: int):
     """Rahimi-Recht RBF random features, W ~ N(0, 1/bw^2) and
@@ -22,13 +24,16 @@ def rf_weight_tensors(d: int, rf_dim: int, bandwidth: float, seed: int,
     staged in pinned memory and copied asynchronously on the current
     stream: a copy from pageable memory would block the host until the
     stream drained (and cannot run inside a capture)."""
-    host = [torch.from_numpy(a) for a in rf_weights(d, rf_dim, bandwidth,
-                                                    seed)]
     device = torch.device(device)
-    if device.type != "cuda":
-        return host[0].to(device), host[1].to(device)
-    w, b = (t.pin_memory().to(device, non_blocking=True) for t in host)
-    return w, b
+    with spans.span("rf.weights") as sp:
+        host = [torch.from_numpy(a) for a in rf_weights(d, rf_dim, bandwidth,
+                                                        seed)]
+        pinned = device.type == "cuda"
+        sp.set(bytes=sum(t.nbytes for t in host), pinned=pinned)
+        if not pinned:
+            return host[0].to(device), host[1].to(device)
+        w, b = (t.pin_memory().to(device, non_blocking=True) for t in host)
+        return w, b
 
 
 def rf_map_ref(x: torch.Tensor, w: torch.Tensor,
