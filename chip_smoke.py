@@ -196,6 +196,11 @@ KERNEL_META = {
              "src/repro/kernels/gram/gram.py:38"),
     "normal_matvec": ("src/repro_torch/csrc/normal_matvec.cu",
                       "src/repro/kernels/normal_matvec/normal_matvec.py:40"),
+    # normal_matvec's route for one column of w: the JAX package computes
+    # truncated_svd's Lanczos step with XLA's two products (jax_backend.py
+    # _gram_matvec), so it replaces no TPU kernel
+    "normal_matvec_stream": ("src/repro_torch/csrc/normal_matvec_stream.cu",
+                             "none"),
     "rf_map": ("src/repro_torch/csrc/rf_map.cu",
                "src/repro/kernels/rf_map/rf_map.py:42"),
     "swa": ("src/repro_torch/csrc/swa.cu",
@@ -221,6 +226,14 @@ KERNEL_DESIGN = {
             "through shared memory and written with their mirror by rows; "
             "fixed row slabs summed in order",
     "normal_matvec": "3xTF32 wgmma",
+    "normal_matvec_stream": "fp32 CUDA-core FMAs, one pass over X: a "
+                            "producer warp lands whole rows by 1-D bulk "
+                            "copies (TMA) into a ring of up to 8 stages, "
+                            "eight consumer warps read each row with w "
+                            "and the sums in registers (32 columns a "
+                            "thread), y_r x_r summed 128 rows apart; row "
+                            "slabs in whole waves, partials summed in "
+                            "order (no atomics)",
     "rf_map": "3xTF32 wgmma, persistent 128x160 tiles columns fastest, "
               "cos epilogue staged through shared memory",
     "swa": "bf16: wgmma on TMA-fed 128-byte swizzled tiles, a producer "
@@ -662,10 +675,12 @@ def check_main_shapes() -> dict:
     import torch
     from repro_torch.kernels.gram.ops import gram
     from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.normal_matvec import ops as nm_ops
     from repro_torch.kernels.normal_matvec.ops import normal_matvec
     from repro_torch.kernels.normal_matvec.ref import normal_matvec_ref
     from repro_torch.kernels.rf_map.ops import rf_map_apply
     from repro_torch.kernels.rf_map.ref import rf_map_ref, rf_weights
+    from repro_torch.launch.forward_check import kernels_ms
     out = {}
 
     # gram_svd's A: 1,048,576 x 8,096 (34 GB)
@@ -681,7 +696,30 @@ def check_main_shapes() -> dict:
                    "plain_ms": cuda_time_ms(lambda: gram_ref(a)),
                    "library_ms": cuda_time_ms(lambda: torch.mm(a.T, a)),
                    "bound_ms": bound, "bound_by": by}
-    del a
+
+    # a truncated_svd Lanczos step on the same A: w one column, which
+    # normal_matvec sends to its one-pass stream route
+    q = _randn_on_card((d, 1), 8)
+    before = nm_ops.STREAM_LAUNCHES.value
+    got = normal_matvec(a, q)
+    if nm_ops.STREAM_LAUNCHES.value != before + 1:
+        raise AssertionError("normal_matvec at one column of w did not "
+                             "take the stream route")
+    err = close("normal_matvec", got, blocked(normal_matvec_ref, a, q),
+                "float32")
+    # fp32 FMAs on the CUDA cores; X read once
+    nbytes, flops = 4.0 * (n * d + 2 * d), 4.0 * n * d
+    bound, by = bound_ms(nbytes, flops)
+    out["normal_matvec_stream"] = {
+        "shape": [n, d, 1], "max_abs_err": err,
+        "kernel_ms": cuda_time_ms(lambda: normal_matvec(a, q), SWA_REPS),
+        "device_ms": kernels_ms(lambda: normal_matvec(a, q)),
+        "plain_ms": cuda_time_ms(lambda: normal_matvec_ref(a, q)),
+        "library_ms": cuda_time_ms(lambda: a.T @ (a @ q[:, 0]), SWA_REPS),
+        "library_note": "a.T @ (a @ q): cuBLAS's two passes over X, the "
+                        "Lanczos step before the stream route",
+        "bound_ms": bound, "bound_by": by}
+    del a, q, got
     torch.cuda.empty_cache()
 
     # a CG iteration's Z: 1,048,576 x 10,000 (41.9 GB), w 10,000 x 147
@@ -1305,6 +1343,10 @@ def phase_svd(ac, counters) -> dict:
     if launches["gram"] < 1:
         raise AssertionError(f"gram_svd did not run through the gram "
                              f"kernel: {launches}")
+    if launches["normal_matvec_stream"] != S1.stats()["matvecs"]:
+        raise AssertionError(f"truncated_svd's {S1.stats()['matvecs']} "
+                             f"Lanczos steps did not each run the stream "
+                             f"route once: {launches}")
     np.testing.assert_allclose(s1, s2, rtol=1e-3)
 
     t0 = time.perf_counter()
@@ -3519,7 +3561,7 @@ def _sync_free_checks() -> tuple:
     calls = [(f"{lib}.{rt}@capture",
               lambda rt=rt, lib=lib: be.routine_impl(lib, rt).fn(**args[rt]))
              for lib, rt in sorted(CAPTURE_SAFE)]
-    x, w = rnd(256, 96), rnd(96, 40)
+    x, w, w1 = rnd(256, 96), rnd(96, 40), rnd(96, 1)
     wr, br = rnd(96, 160), torch.rand(160, generator=g).to(dev)
     q = rnd(1, 4, 128, 64, dtype=torch.bfloat16)
     kv = rnd(1, 2, 128, 64, dtype=torch.bfloat16)
@@ -3528,6 +3570,7 @@ def _sync_free_checks() -> tuple:
     calls += [
         ("gram", lambda: gram_ops.gram(x)),
         ("normal_matvec", lambda: nm_ops.normal_matvec(x, w)),
+        ("normal_matvec_stream", lambda: nm_ops.normal_matvec(x, w1)),
         ("rf_map", lambda: rf_ops.rf_map(x, 160, bandwidth=2.0, seed=3)),
         ("rf_map_apply", lambda: rf_ops.rf_map_apply(x, wr, br)),
         ("swa", lambda: swa_ops.swa_attention(q, kv, kv, window=32)),

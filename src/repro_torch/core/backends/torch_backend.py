@@ -3,11 +3,12 @@
 
 Implementations are tensor-level: torch tensors in, torch tensors out, on
 whatever device the engine keeps its stores (one CUDA device, or the CPU
-when a caller asks for it). Three routines go through the port's
+when a caller asks for it). Four routines go through the port's
 hand-written kernels (``repro_torch/kernels``):
 
 * ``gram`` and ``gram_svd`` through ``gram``;
-* ``cg_solve``'s iteration through ``normal_matvec``;
+* ``cg_solve``'s iteration and ``truncated_svd``'s Lanczos matvec
+  through ``normal_matvec``;
 * ``cg_solve``'s ``rf_dim`` expansion and ``random_features`` through
   ``rf_map``.
 
@@ -715,8 +716,10 @@ def _truncated_svd(A, k: int, oversample: int = 32, max_iters: int = 0,
                    seed: int = 0):
     """ARPACK-style driver: the shared host-side Lanczos loop
     (``reference._lanczos_gram``) around a device matvec X^T (X q), as
-    the JAX backend drives its jitted ``_gram_matvec``."""
-    x = A
+    the JAX backend drives its jitted ``_gram_matvec``. The matvec is one
+    ``normal_matvec`` call, which reads X once on the card (its stream
+    route) where two products read it twice."""
+    x = A.contiguous()
     n, d = x.shape
     m = min(d, k + oversample) if max_iters == 0 else min(d, max_iters)
     q0 = np.random.default_rng(seed).standard_normal(d)
@@ -725,9 +728,11 @@ def _truncated_svd(A, k: int, oversample: int = 32, max_iters: int = 0,
         # each Lanczos iteration re-enters here: the natural QoS
         # preemption boundary for the reverse-communication driver
         base.yield_check()
-        qd = _from_host(q, x)
+        qd = torch.from_numpy(np.ascontiguousarray(q)).to(
+            device=x.device, dtype=torch.float32)
         spans.count("syncs")
-        return (x.T @ (x @ qd)).double().cpu().numpy()
+        return nm_ops.normal_matvec(x, qd[:, None])[:, 0].double().cpu() \
+            .numpy()
 
     sigma, V, iters, matvecs = _lanczos_gram(matvec, d, k, m, q0)
     with spans.span("lanczos.u"):

@@ -1,6 +1,8 @@
 // w -> X^T (X w), fp32 accumulation. X (n, d) fp32 or bf16 row-major,
-// w (d, c) fp32, result (d, c) fp32. Any n, d and c: there is no cap and
-// no other path on the card.
+// w (d, c) fp32, result (d, c) fp32. Any n, d and c: there is no cap. On
+// the card the wrapper (kernels/normal_matvec/ops.py route) sends narrow w
+// (c = 1, d <= 8,192), where X's bytes bound the call, to the one-pass
+// route of normal_matvec_stream.cu, and every other call here.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/normal_matvec/normal_matvec.py::normal_matvec_pallas

@@ -26,8 +26,8 @@ from repro_torch.analysis import locktrace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("gram", "normal_matvec", "rf_map", "swa", "swa_bwd",
-           "lru_scan")
+KERNELS = ("gram", "normal_matvec", "normal_matvec_stream", "rf_map",
+           "swa", "swa_bwd", "lru_scan")
 
 # No --use_fast_math: it turns cosf into __cosf, which is wrong at the
 # |XW + b| of tens that random features reach.
@@ -44,6 +44,10 @@ SIGNATURES = {
     "normal_matvec": ("normal_matvec_launch",
                       [_INT, _C, _C, _C, _C, _C, _C, _I64, _I64, _I64, _INT,
                        _INT, _C]),
+    # (dtype, x, w, partials, out, n, d, c, slab rows, slabs, stream)
+    "normal_matvec_stream": ("normal_matvec_stream_launch",
+                             [_INT, _C, _C, _C, _C, _I64, _I64, _I64, _I64,
+                              _INT, _C]),
     # (dtype, x, w, b, wt, z, n, d, D, scale, blocks, stream)
     "rf_map": ("rf_map_launch",
                [_INT, _C, _C, _C, _C, _C, _I64, _I64, _I64, ctypes.c_float,

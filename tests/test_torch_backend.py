@@ -117,6 +117,39 @@ def test_svd_routines_match_reference(routine, scalars):
         assert port.get(key) == ref.get(key)
 
 
+@pytest.mark.parametrize("n,d,k,oversample", [(48, 12, 4, 32),
+                                               (300, 40, 5, 8)])
+def test_truncated_svd_steps_through_normal_matvec(monkeypatch, n, d, k,
+                                                   oversample):
+    """Each Lanczos step is one normal_matvec call on a single column,
+    and sigma and V are those of the two products the step computed
+    before (x.T @ (x @ q)) within fp32 rounding."""
+    from repro_torch.core.backends.reference import _lanczos_gram
+    from repro_torch.kernels.normal_matvec import ops as nm_ops
+    a = np.random.RandomState(n).randn(n, d).astype(np.float32) \
+        @ np.diag(np.geomspace(6.0, 0.2, d)).astype(np.float32)
+    x = torch.from_numpy(a)
+    widths = []
+    plain = nm_ops.normal_matvec
+    monkeypatch.setattr(nm_ops, "normal_matvec", lambda xx, w: widths.append(
+        (xx is x, tuple(w.shape), w.dtype)) or plain(xx, w))
+    got = TORCH.routine_impl("elemental", "truncated_svd").fn(
+        A=x, k=k, oversample=oversample, seed=3)
+    assert widths == [(True, (d, 1), torch.float32)] * got["matvecs"]
+
+    def before(q):
+        qd = torch.from_numpy(q).float()
+        return (x.T @ (x @ qd)).double().numpy()
+    m = min(d, k + oversample)
+    sigma, v, iters, matvecs = _lanczos_gram(
+        before, d, k, m, np.random.default_rng(3).standard_normal(d))
+    assert (got["lanczos_iters"], got["matvecs"]) == (iters, matvecs)
+    np.testing.assert_allclose(got["S"].numpy(), sigma.astype(np.float32),
+                               rtol=2e-6)
+    dots = np.abs(np.sum(got["V"].double().numpy() * v, axis=0))
+    np.testing.assert_allclose(dots, np.ones(k), atol=1e-6)
+
+
 def test_random_features_match_reference_draws():
     port, ref = run_both("skylark", "random_features", {"X": X},
                          {"rf_dim": 64, "bandwidth": 2.0, "seed": 1})

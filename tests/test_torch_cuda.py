@@ -12,8 +12,11 @@ import torch
 from repro_torch.kernels import launch_counters
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.normal_matvec.ops import normal_matvec
+from repro_torch.kernels.normal_matvec.ops import route as nm_route
 from repro_torch.kernels.rf_map.ops import rf_map_apply
 from repro_torch.kernels.rf_map.ref import rf_weights
+from repro_torch.launch.normal_matvec_check import \
+    SWEEP_CASES as STREAM_CASES
 
 
 @pytest.fixture()
@@ -52,8 +55,9 @@ def test_cuda_kernels_match_their_plain_versions(cuda, dtype, tols):
                                rf_map_ref(a, wr, br), rtol=tols["rf"],
                                atol=tols["rf"])
     assert {k: c.value for k, c in counters.items()} == \
-        {"gram": 1, "normal_matvec": 1, "rf_map": 1, "swa": 0,
-         "swa_bwd": 0, "lru_scan": 0, "lru_scan_reverse": 0}
+        {"gram": 1, "normal_matvec": 1, "normal_matvec_stream": 0,
+         "rf_map": 1, "swa": 0, "swa_bwd": 0, "lru_scan": 0,
+         "lru_scan_reverse": 0}
 
 
 SWA_CASES = [  # (s, window, kv heads): the JAX sweep, then the port's own
@@ -101,9 +105,9 @@ def test_cuda_swa_and_lru_scan_match_their_plain_versions(cuda, dtype, tol):
                                torch.tensor([8.0, 4.0, 2.0, 1.0]))
     torch.cuda.synchronize()
     assert {k: c.value for k, c in counters.items()} == \
-        {"gram": 0, "normal_matvec": 0, "rf_map": 0,
-         "swa": len(SWA_CASES) + 1, "swa_bwd": 0, "lru_scan": 4,
-         "lru_scan_reverse": 0}
+        {"gram": 0, "normal_matvec": 0, "normal_matvec_stream": 0,
+         "rf_map": 0, "swa": len(SWA_CASES) + 1, "swa_bwd": 0,
+         "lru_scan": 4, "lru_scan_reverse": 0}
 
 
 @pytest.mark.cuda
@@ -124,6 +128,36 @@ def test_cuda_normal_matvec_column_tiles(cuda, dtype, tol):
         want = normal_matvec_ref(x, w)
         torch.testing.assert_close(normal_matvec(x, w), want, rtol=tol,
                                    atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,c,offset", STREAM_CASES)
+def test_cuda_normal_matvec_stream_route_matches_float64(cuda, dtype, n, d,
+                                                         c, offset):
+    """normal_matvec at narrow w (normal_matvec_check.SWEEP_CASES: ragged
+    n, one row, d off 16 bytes, a base off 16 bytes, short rows, d = 8,096
+    and 8,192, c = 1 and past it) against X^T (X w) in float64 at fp32's
+    tolerance for both dtypes (a bf16 X is exact in fp32 and the route's
+    arithmetic is fp32); the route its shape picks ran (the stream route
+    for every c = 1 case), and a second call gives the same bits."""
+    g = torch.Generator().manual_seed(n + d + c)
+    x = torch.randn(n * d + offset, generator=g).to(cuda, dtype)[offset:] \
+        .view(n, d)
+    w = torch.randn(d, c, generator=g).to(cuda)
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    got = normal_matvec(x, w)
+    stream = nm_route(d, c, dtype) == "stream"
+    assert stream or c > 1
+    assert (counters["normal_matvec_stream"].value,
+            counters["normal_matvec"].value) == ((1, 0) if stream else (0, 1))
+    want = x.double().T @ (x.double() @ w.double())
+    tol = 3e-5
+    torch.testing.assert_close(got.double(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    assert torch.equal(got, normal_matvec(x, w))
 
 
 @pytest.mark.cuda

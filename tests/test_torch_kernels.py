@@ -19,9 +19,10 @@ from repro_torch import interop
 from repro_torch.kernels import device, launch_counters
 from repro_torch.kernels.gram.gram import gram_slabs, slab_rows
 from repro_torch.kernels.gram.ops import gram
-from repro_torch.kernels.normal_matvec.normal_matvec import \
-    column_tiles, normal_matvec_slabs
-from repro_torch.kernels.normal_matvec.ops import normal_matvec
+from repro_torch.kernels.normal_matvec.normal_matvec import (
+    STREAM_MAX_D, column_tiles, normal_matvec_slabs,
+    normal_matvec_stream_cuda, stream_slabs)
+from repro_torch.kernels.normal_matvec.ops import normal_matvec, route
 from repro_torch.kernels.rf_map.ops import rf_map, rf_map_apply
 from repro_torch.kernels.rf_map.ref import rf_weights
 
@@ -109,8 +110,9 @@ def test_cpu_wrappers_launch_nothing():
     normal_matvec(x, torch.randn(8, 2))
     rf_map(x, 16)
     assert {k: c.value for k, c in counters.items()} == \
-        {"gram": 0, "normal_matvec": 0, "rf_map": 0, "swa": 0,
-         "swa_bwd": 0, "lru_scan": 0, "lru_scan_reverse": 0}
+        {"gram": 0, "normal_matvec": 0, "normal_matvec_stream": 0,
+         "rf_map": 0, "swa": 0, "swa_bwd": 0, "lru_scan": 0,
+         "lru_scan_reverse": 0}
 
 
 def test_cpu_path_settles_vector_math_before_the_first_plain_version(
@@ -194,6 +196,85 @@ def test_no_slab_runs_longer_than_the_accuracy_cap():
         rows = slab_rows(n, slabs)
         assert rows % 32 == 0 and rows <= device.MAX_SLAB_ROWS
         assert (slabs - 1) * rows < n <= slabs * rows
+
+
+# (d, c, dtype, route): the Lanczos cell's step (2,059,195 x 8,096, one
+# column), CG's 147 classes, the top c (1) and one above it, also on
+# narrower rows, bf16, the widest rows the stream route holds and one
+# wider, a one-column CG at CG's width
+ROUTE_CASES = [
+    (8_096, 1, torch.float32, "stream"),
+    (10_000, 147, torch.float32, "wgmma"),
+    (8_096, 147, torch.float32, "wgmma"),
+    (8_096, 2, torch.float32, "wgmma"),
+    (4_096, 2, torch.float32, "wgmma"),
+    (37, 2, torch.float32, "wgmma"),
+    (8_096, 1, torch.bfloat16, "stream"),
+    (8_096, 2, torch.bfloat16, "wgmma"),
+    (1_000, 2, torch.bfloat16, "wgmma"),
+    (8_192, 1, torch.float32, "stream"),
+    (8_193, 1, torch.float32, "wgmma"),
+    (8_192, 1, torch.bfloat16, "stream"),
+    (8_200, 1, torch.bfloat16, "wgmma"),
+    (37, 1, torch.float32, "stream"),
+    (1, 1, torch.bfloat16, "stream"),
+    (10_000, 1, torch.float32, "wgmma"),
+]
+@pytest.mark.parametrize("d,c,dtype,want", ROUTE_CASES)
+def test_normal_matvec_route_follows_the_calls_shape(d, c, dtype, want):
+    """The wrapper's choice on the card: one pass over X (the stream
+    route) for one column of w and rows its register sums hold, the
+    tensor-core route for every other call."""
+    assert STREAM_MAX_D == 8_192
+    assert route(d, c, dtype) == want
+
+
+def test_stream_plan_at_the_lanczos_cells_shape():
+    """2,059,195 rows on 132 SMs: one wave of 132 slabs of 15,600 rows,
+    4.3 MB of partials at d = 8,096."""
+    assert stream_slabs(2_059_195, 132) == (132, 15_600)
+    assert 132 * 8_096 * 4 == 4_274_688
+
+
+@pytest.mark.parametrize("n", [2_059_195, 10_000_000, 1_029_598, 300_000,
+                               70_000, 132 * 256, 4_133, 999, 1])
+def test_stream_plan_covers_the_rows_within_the_accuracy_cap(n):
+    """Every slab is non-empty and at most MAX_SLAB_ROWS long, at least
+    MIN_SLAB_ROWS where there are that many rows, and the slabs fill whole
+    waves of 132 blocks where the rows allow."""
+    slabs, rows = stream_slabs(n, 132)
+    assert rows <= device.MAX_SLAB_ROWS
+    assert (slabs - 1) * rows < n <= slabs * rows
+    assert rows >= min(n, device.MIN_SLAB_ROWS)
+    if n >= 132 * device.MIN_SLAB_ROWS:
+        assert slabs % 132 == 0
+
+
+def _stream_source():
+    from repro_torch.kernels import build
+    return (build.CSRC / "normal_matvec_stream.cu").read_text()
+
+
+def test_normal_matvec_stream_launcher_declares_the_c_entry():
+    """build.SIGNATURES['normal_matvec_stream'] declares as many arguments
+    as the extern "C" normal_matvec_stream_launch takes, and the launcher
+    passes that many."""
+    import inspect
+    import re
+    from repro_torch.kernels import build
+    params = re.search(r'extern "C" int normal_matvec_stream_launch\('
+                       r'(.*?)\)\s*\{', _stream_source(), re.S).group(1)
+    n_c = len(params.split(","))
+    assert len(build.SIGNATURES["normal_matvec_stream"][1]) == n_c == 11
+    call = re.search(r"lib\.normal_matvec_stream_launch\((.*?)\)\n",
+                     inspect.getsource(normal_matvec_stream_cuda),
+                     re.S).group(1)
+    depth, n_py = 0, 1
+    for ch in call:
+        depth += ch in "(["
+        depth -= ch in ")]"
+        n_py += ch == "," and depth == 0
+    assert n_py == n_c
 
 
 def test_interop_follows_jax_dtype_rules():
